@@ -1,0 +1,121 @@
+"""Flash-decode: wrapper of the CUDA kernels ``csrc/decode_attention.cu``
+(replaces the TPU kernel ``repro/kernels/decode_attention.py:103
+flash_decode``).
+
+Single-token GQA attention over the ring KV cache, split-K over the
+cache length with a combine pass.  Takes CUDA tensors only;
+``ops.decode_attention`` sends CPU tensors to the plain version
+(``ref.flash_decode_ref``).  ``flash_decode.launches`` counts the
+launches (one per call: the split kernel and its combine).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import build
+
+_Q_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+_KV_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+HEAD_DIMS = (32, 64, 128)
+MAX_GROUP = 8            # query heads per KV head held in registers
+
+
+def _lib():
+    fn = build.load("decode_attention").flash_decode
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 10 + [i] * 9 + [p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def num_splits(batch: int, kv_heads: int, cache_len: int,
+               device: torch.device) -> int:
+    """Splits of the cache length: about two blocks per SM in all, and
+    at least 64 slots per split."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = -(-2 * sms // (batch * kv_heads))
+    return max(1, min(want, cache_len // 64))
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, cache_index: torch.Tensor, *,
+                 window: Optional[int] = None,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B, H, D); caches (B, T, KH, D) f32 / bf16, or int8 with
+    ``k_scale`` / ``v_scale`` (B, T, KH) f32; cache_index (B,) int32 on
+    the device.  Returns (B, H, D) in q's dtype."""
+    dev = q.device
+    tensors = [q, k_cache, v_cache, cache_index]
+    quantized = k_scale is not None
+    if quantized != (v_scale is not None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    if quantized:
+        tensors += [k_scale, v_scale]
+    if not q.is_cuda or any(t.device != dev for t in tensors):
+        raise ValueError("flash_decode kernel takes CUDA tensors on one "
+                         f"device, got {[str(t.device) for t in tensors]}")
+    if q.dtype not in _Q_DTYPE or k_cache.dtype not in _KV_DTYPE \
+            or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"bad dtypes q {q.dtype}, cache {k_cache.dtype} / "
+                        f"{v_cache.dtype}")
+    if quantized != (k_cache.dtype == torch.int8):
+        raise TypeError("an int8 cache needs scales, and only an int8 "
+                        "cache takes them")
+    if k_cache.dtype != torch.int8 and k_cache.dtype != q.dtype:
+        raise TypeError(f"cache dtype {k_cache.dtype} != q dtype {q.dtype}")
+    if cache_index.dtype != torch.int32:
+        raise TypeError(f"cache_index must be int32, got {cache_index.dtype}")
+    if q.ndim != 3 or k_cache.ndim != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)}, cache "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
+    b, h, d = q.shape
+    T, kh = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape[0] != b or k_cache.shape[3] != d or h % kh:
+        raise ValueError(f"bad shapes q {tuple(q.shape)}, cache "
+                         f"{tuple(k_cache.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if h // kh > MAX_GROUP:
+        raise ValueError(f"{h // kh} query heads per KV head exceeds the "
+                         f"kernel's {MAX_GROUP}")
+    if tuple(cache_index.shape) != (b,):
+        raise ValueError(f"cache_index must be ({b},), got "
+                         f"{tuple(cache_index.shape)}")
+    if quantized and (k_scale.dtype != torch.float32
+                      or v_scale.dtype != torch.float32
+                      or tuple(k_scale.shape) != (b, T, kh)
+                      or v_scale.shape != k_scale.shape):
+        raise ValueError("scales must be f32 of shape (B, T, KH)")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash_decode takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("flash_decode needs 16-byte aligned q and caches")
+    splits = num_splits(b, kh, T, dev)
+    part_m = torch.empty(b * h * splits, dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty(b * h * splits * d, dtype=torch.float32,
+                           device=dev)
+    out = torch.empty_like(q)
+    ks = k_scale.data_ptr() if quantized else None
+    vs = v_scale.data_ptr() if quantized else None
+    rc = _lib()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ks, vs,
+                cache_index.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+                part_acc.data_ptr(), out.data_ptr(), b, T, h, kh, d,
+                window or 0, splits, _Q_DTYPE[q.dtype],
+                _KV_DTYPE[k_cache.dtype],
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_decode kernel launch failed: "
+                           f"cudaError {rc}")
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

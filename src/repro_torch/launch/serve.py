@@ -1,0 +1,60 @@
+"""Serving launcher of the port: routes batched requests to path replicas.
+
+    # one-shot engine over randomly initialized paths, on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dipaco-150m \
+        --paths 4 --requests 8 --max-new 16 [--reroute-every 8]
+
+    # the same on the CPU (plain attention, no kernels)
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+
+Only ``--engine oneshot`` is ported so far.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.data import SyntheticCorpus
+from repro_torch.device import resolve_device
+from repro_torch.models import api
+from repro_torch.serving import EngineOptions, PathServingEngine
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="dipaco-150m")
+    ap.add_argument("--engine", choices=["oneshot"], default="oneshot")
+    ap.add_argument("--paths", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--reroute-every", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default: cuda; it "
+                         "raises where there is no card)")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+
+    cfg = get_smoke_config(args.arch).replace(route_prefix_len=8)
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
+                             seq_len=args.prompt_len, seed=0)
+    prompts = corpus.sample_documents(args.requests)
+    cache_len = args.prompt_len + args.max_new
+    paths = [api.init_model(cfg, seed=args.seed * 1000 + p, device=device)
+             for p in range(args.paths)]
+    engine = PathServingEngine(cfg, paths,
+                               options=EngineOptions(cache_len=cache_len))
+    t0 = time.time()
+    res = engine.generate(prompts, max_new=args.max_new,
+                          reroute_every=args.reroute_every)
+    dt = time.time() - t0
+    toks = args.requests * args.max_new
+    print(f"[serve] {toks} tokens in {dt:.2f}s "
+          f"({toks / dt:.1f} tok/s) on {device}, switches={res.switches}")
+    print(f"[serve] request->path: {res.paths.tolist()}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,156 @@
+"""The port's scaffold against the JAX package: configs, the parameter
+bridge, the corpus copy, the import rule and the device rule."""
+import ast
+import dataclasses
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jcfgs
+from repro.data import SyntheticCorpus as JCorpus
+from repro.models import api as japi
+from repro_torch import configs as tcfgs
+from repro_torch.data import SyntheticCorpus as TCorpus
+from repro_torch.models import api as tapi
+from repro_torch.models.params import from_numpy_tree, to_numpy_tree
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, prefix + (k,)))
+        return out
+    return {"/".join(prefix): tree}
+
+
+@pytest.mark.parametrize("name", tcfgs.ALL_CONFIGS)
+@pytest.mark.parametrize("kind", ["config", "smoke"])
+def test_config_asdict_matches_reference(name, kind):
+    getter = "get_config" if kind == "config" else "get_smoke_config"
+    mine = getattr(tcfgs, getter)(name)
+    theirs = getattr(jcfgs, getter)(name)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+
+
+def test_unported_arch_raises_keyerror():
+    for name in jcfgs.ALL_CONFIGS:
+        if name not in tcfgs.ALL_CONFIGS:
+            with pytest.raises(KeyError, match="not ported"):
+                tcfgs.get_config(name)
+    with pytest.raises(KeyError):
+        tcfgs.get_smoke_config("no-such-arch")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bridge_roundtrip_is_bit_exact(dtype):
+    cfg = jcfgs.get_smoke_config("dipaco-150m").replace(dtype=dtype)
+    tree = _np_tree(japi.init_model(jax.random.PRNGKey(0), cfg)[0])
+    back = to_numpy_tree(from_numpy_tree(tree, device="cpu"))
+    a, b = _flat(tree), _flat(back)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+        assert a[k].tobytes() == b[k].tobytes(), k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_model_has_reference_tree(dtype):
+    cfg = tcfgs.get_smoke_config("dipaco-150m").replace(dtype=dtype,
+                                                        qk_norm=True)
+    mine = to_numpy_tree(tapi.init_model(cfg, seed=0, device="cpu"))
+    theirs = _np_tree(japi.init_model(
+        jax.random.PRNGKey(0),
+        jcfgs.get_smoke_config("dipaco-150m").replace(dtype=dtype,
+                                                      qk_norm=True))[0])
+    a, b = _flat(mine), _flat(theirs)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert (a[k].shape, a[k].dtype) == (b[k].shape, b[k].dtype), k
+        # same scales: the std of each random leaf within 10%
+        if b[k].size > 1000:
+            ratio = a[k].astype(np.float32).std() / \
+                b[k].astype(np.float32).std()
+            assert 0.9 < ratio < 1.1, (k, ratio)
+
+
+@pytest.mark.parametrize("vocab,seed", [(512, 0), (32000, 3)])
+def test_corpus_copy_matches_reference(vocab, seed):
+    mine = TCorpus(vocab_size=vocab, num_domains=4, seq_len=48, seed=seed)
+    theirs = JCorpus(vocab_size=vocab, num_domains=4, seq_len=48, seed=seed)
+    a, da = mine.sample_documents(16, return_domains=True)
+    b, db = theirs.sample_documents(16, return_domains=True)
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(da, db)
+    np.testing.assert_array_equal(mine.sample_documents(5, seed=9),
+                                  theirs.sample_documents(5, seed=9))
+    assert mine.oracle_nll() == theirs.oracle_nll()
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (f, mod)
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+
+
+@pytest.mark.parametrize("entry", [
+    "init_model", "from_numpy_tree", "init_serve_cache", "serve_main"])
+def test_default_device_without_card_raises(entry):
+    _no_card()
+    cfg = tcfgs.get_smoke_config("dipaco-150m")
+    calls = {
+        "init_model": lambda: tapi.init_model(cfg),
+        "from_numpy_tree": lambda: from_numpy_tree(
+            {"w": np.zeros(3, np.float32)}),
+        "init_serve_cache": lambda: tapi.init_serve_cache(cfg, 1, 8),
+        "serve_main": lambda: __import__(
+            "repro_torch.launch.serve", fromlist=["main"]).main([]),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A kernel wrapper never computes on the CPU: only ``ops`` sends a
+    CPU tensor to the plain version."""
+    from repro_torch.kernels.decode_attention import flash_decode
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.zeros(1, 4, 2, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode(q[:, 0], q, q, torch.zeros(1, dtype=torch.int32))
+    assert flash_attention.launches == 0 and flash_decode.launches == 0
+
+
+def test_ops_reject_other_devices():
+    from repro_torch.kernels import ops
+    q = torch.zeros(1, 4, 2, 32, device="meta")
+    with pytest.raises(ValueError, match="no attention kernel"):
+        ops.flash_attention(q, q, q)

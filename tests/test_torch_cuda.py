@@ -1,0 +1,127 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a
+card.  Every test carries the ``cuda`` marker and skips without a CUDA
+device (the kernels have no CPU mode).
+
+This file imports neither JAX nor the JAX package, so it also runs where
+JAX is absent, e.g. on the H100 machine:
+
+    PYTHONPATH=src python3 -m pytest -q --noconftest -m cuda \
+        tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ref
+
+# f32: summation order only; bf16: one bf16 rounding of outputs below 4
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+# (B, H, KH, D, T, cache_index, window): MHA, GQA, MQA, ring wrap,
+# window over a wrapped ring, non-power-of-2 T, D 128
+DECODE_CASES = [
+    (2, 4, 4, 32, 32, [5, 20], None),
+    (3, 8, 2, 64, 64, [0, 31, 63], None),
+    (2, 4, 1, 32, 48, [10, 40], None),
+    (2, 4, 2, 32, 32, [40, 70], None),
+    (2, 4, 2, 32, 32, [12, 45], 8),
+    (2, 4, 2, 32, 40, [7, 90], 12),
+    (3, 16, 2, 128, 300, [0, 299, 1000], 100),
+]
+# (B, S, H, KH, D, window): MHA, GQA, MQA, windows, ragged S
+ATTN_CASES = [
+    (2, 64, 4, 4, 32, None),
+    (2, 64, 8, 2, 32, None),
+    (1, 48, 4, 1, 64, None),
+    (2, 64, 4, 2, 32, 16),
+    (2, 50, 4, 2, 32, None),
+    (1, 77, 4, 4, 128, 24),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _randn(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in shapes]
+
+
+def _quant(x):
+    scale = torch.clamp_min(x.abs().amax(-1) / 127.0, 1e-8)
+    qx = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
+    return qx.to(torch.int8), scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kh,d,window", ATTN_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h, kh, d,
+                                              window):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = (x.to(cuda, dtype) for x in _randn(
+        5, (b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    plain = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), plain.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,d,T,ci,window", DECODE_CASES)
+def test_flash_decode_kernel_matches_plain(cuda, dtype, int8, b, h, kh, d, T,
+                                           ci, window):
+    from repro_torch.kernels.decode_attention import flash_decode
+    q, kc, vc = _randn(6, (b, h, d), (b, T, kh, d), (b, T, kh, d))
+    ks = vs = None
+    if int8:
+        (kc, ks), (vc, vs) = _quant(kc), _quant(vc)
+        ks, vs = ks.to(cuda), vs.to(cuda)
+        kc, vc = kc.to(cuda), vc.to(cuda)
+    else:
+        kc, vc = kc.to(cuda, dtype), vc.to(cuda, dtype)
+    q = q.to(cuda, dtype)
+    cit = torch.tensor(ci, dtype=torch.int32, device=cuda)
+    before = flash_decode.launches
+    out = flash_decode(q, kc, vc, cit, window=window, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    plain = ref.flash_decode_ref(q, kc, vc, cit, window=window, k_scale=ks,
+                                 v_scale=vs)
+    torch.testing.assert_close(out.float(), plain.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_model_decode_goes_through_both_kernels(cuda):
+    """The wiring at smoke size: the pallas model's cache-free forward
+    launches flash attention once per block, a decode step flash decode
+    once per block, and prefill neither (its dense s > 1 branch)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.decode_attention import flash_decode
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import api
+    cfg = get_smoke_config("dipaco-150m").replace(attn_impl="pallas")
+    params = api.init_model(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), device=cuda)
+    fa, fd = flash_attention.launches, flash_decode.launches
+    api.forward_logits(params, cfg, {"tokens": toks})
+    _, cache = api.prefill(params, cfg, {"tokens": toks}, 16)
+    assert flash_decode.launches == fd
+    logits, _ = api.serve_step(params, cfg, {"tokens": toks[:, :1]}, cache, 8)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == fa + cfg.num_layers
+    assert flash_decode.launches == fd + cfg.num_layers
+    assert torch.isfinite(logits).all()
+
