@@ -7,20 +7,32 @@ NVIDIA H100.
 Phases (any failure exits non-zero; no phase catches its own failure):
 
 1. Card and build: prints the card's name and power limit, builds every
-   CUDA kernel of the serving path from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, in parallel) and prints the build time.
+   CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
+   source, in parallel) and prints the build time.
 2. Kernels against their plain PyTorch versions on the card, in bf16 and
-   f32, at the serving path's shapes and at larger ones; times each
-   kernel, its plain version and one PyTorch call as a yardstick, and
-   prints one ``{"kernels": [...]}`` line.
-3. The slice at full width: ``dipaco-150m`` (12 blocks, d 896, vocab
+   f32, at the main paths' shapes and at others: flash attention and
+   flash decode (serving), the forward that writes the LSE rows, the
+   dK/dV and dQ backward kernels and the k-means assignment (training).
+   Times each kernel, its plain version and one PyTorch call as a
+   yardstick.
+3. Serving at full width: ``dipaco-150m`` (12 blocks, d 896, vocab
    32000) in bf16 with ``attn_impl="pallas"``, 4 random paths and a
    discriminative router; ``PathServingEngine.generate`` serves 8 corpus
    prompts, once plain and once with re-routing, and must launch both
-   kernels.  ``prefill`` + decode through the kernels is compared with
-   the same calls through the plain attention.
+   serving kernels.  ``prefill`` + decode through the kernels is
+   compared with the same calls through the plain attention.
+4. Training at full width: the quickstart pipeline on ``dipaco-150m``
+   (bf16, ``attn_impl="pallas"``, routing prefix 32): 2048 synthetic
+   documents of 1024 tokens -> prefix features -> k-means (K = 4) ->
+   pre-sharding -> ``make_trainer(backend="vector")`` for a 2x2 DiPaCo
+   (4 paths, 4 workers, batch 8 per worker), 2 phases of 4 inner steps
+   -> routed evaluation.  The loss must be finite and fall; every
+   training kernel must launch as often as the path needs it.  One inner
+   step's gradients through the kernels are compared with the plain
+   attention's, leaf by leaf, in f32 and bf16.
 
-The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+It prints one ``{"kernels": [...]}`` line before the card's line, and
+the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository's ``src/`` beside it, it exits
 non-zero and prints no result.
 """
@@ -38,14 +50,23 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import make_trainer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.routing import (DiscriminativeRouter,  # noqa: E402
+                                      kmeans_assign, kmeans_fit,
                                       prefix_features)
-from repro_torch.data import SyntheticCorpus  # noqa: E402
+from repro_torch.data import SyntheticCorpus, shard_documents  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
+    attention_delta, flash_attention_dkv, flash_attention_dq,
+    flash_attention_lse)
+from repro_torch.kernels.router_assign import router_assign  # noqa: E402
+from repro_torch.launch.steps import value_and_grad  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models.config import DiPaCoConfig  # noqa: E402
+from repro_torch.models.params import tree_leaves  # noqa: E402
 from repro_torch.serving import EngineOptions, PathServingEngine  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth and
@@ -56,8 +77,19 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # f32 differs only by summation order; a bf16 output may differ by one
 # bf16 rounding of values below 4 (2^-7 at most)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# gradients, relative to the largest of each output: f32 differs by
+# summation order only, bf16 by one bf16 rounding of each output
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 PROMPT_LEN, MAX_NEW, NUM_PATHS, REQUESTS, REROUTE_EVERY = 64, 16, 4, 8, 4
 CACHE_LEN = PROMPT_LEN + MAX_NEW
+# the training phase: documents, their length, K = paths = workers, the
+# batch per worker, inner steps per phase, phases, Lloyd iterations
+DOCS, DOC_LEN, TRAIN_PATHS, TRAIN_BATCH, TAU, PHASES, KMEANS_ITERS = \
+    2048, 1024, 4, 8, 4, 2, 25
+# one inner step's gradients through the kernels vs the plain attention,
+# ||a - b|| / ||b|| per leaf after 12 blocks: f32 differs by summation
+# order; bf16 by the rounding of every activation on both paths
+TRAIN_GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 
 
 def time_ms(fn, iters: int = 50) -> float:
@@ -246,8 +278,185 @@ def fd_timings(gen, b, h, d, T, ci) -> dict:
             qt, kt, vt, attn_mask=mask))}
 
 
+def rel_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def training_attention(q, k, v, do, causal, window) -> tuple:
+    """The three training kernels on one input, and their plain versions:
+    -> (kernel outputs, plain outputs), each (o, lse, dq, dk, dv)."""
+    o, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+    po, plse = ref.fwd_with_lse_ref(q, k, v, causal=causal, window=window)
+    # the backward kernels take the plain forward's o and lse, so each
+    # kernel is held against its own plain version on the same inputs
+    delta = attention_delta(do, po)
+    dk, dv = flash_attention_dkv(q, k, v, do, plse, delta, causal=causal,
+                                 window=window)
+    dq = flash_attention_dq(q, k, v, do, plse, delta, causal=causal,
+                            window=window)
+    torch.cuda.synchronize()
+    pdq, pdk, pdv = ref.flash_attention_bwd_ref(q, k, v, po, plse, do,
+                                                causal=causal, window=window)
+    return (o, lse, dq, dk, dv), (po, plse, pdq, pdk, pdv)
+
+
+def check_training_attention(gen) -> list:
+    # (B, S, H, KH, D, causal, window): the five backward cases of
+    # tests/test_kernels.py (ragged S = 80, a non-causal GQA window), the
+    # other head dims, and the training shape
+    cases = [(2, 128, 4, 2, 32, True, None), (2, 96, 2, 1, 64, True, 24),
+             (2, 64, 4, 4, 32, False, None), (2, 80, 2, 2, 32, True, None),
+             (2, 64, 4, 2, 32, False, 16), (2, 200, 4, 4, 128, True, None),
+             (1, 333, 8, 2, 64, True, 100), (8, 1024, 16, 16, 64, True, None)]
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, s, h, kh, d, causal, w in cases:
+            q, do = (randn(gen, b, s, h, d, dtype=dtype) for _ in range(2))
+            k, v = (randn(gen, b, s, kh, d, dtype=dtype) for _ in range(2))
+            got, plain = training_attention(q, k, v, do, causal, w)
+            errs = {n: rel_err(a, p) for n, a, p in
+                    zip(("o", "lse", "dq", "dk", "dv"), got, plain)}
+            errs["o"] = (got[0].float() - plain[0].float()).abs().max().item()
+            errs["lse"] = (got[1] - plain[1]).abs().max().item()
+            row = {"shape": [b, s, h, kh, d], "causal": causal, "window": w,
+                   "dtype": str(dtype), "o_max_abs_err": errs["o"],
+                   "lse_max_abs_err": errs["lse"],
+                   "grad_rel_err": {n: errs[n] for n in ("dq", "dk", "dv")},
+                   "tol": {"o": TOL[dtype], "lse": 1e-4,
+                           "grad_rel": GRAD_TOL[dtype]}}
+            rows.append(row)
+            print(f"[train_attention] {row}")
+            assert errs["o"] <= TOL[dtype] and errs["lse"] <= 1e-4, row
+            assert all(errs[n] <= GRAD_TOL[dtype] for n in
+                       ("dq", "dk", "dv")), row
+    return rows
+
+
+def training_attention_timings(gen, b, s, h, d) -> list:
+    """bf16 at the training shape: each kernel, its plain version, its
+    bound, and SDPA as the yardstick (its forward for the LSE forward;
+    its backward, timed as forward+backward minus forward, for dK/dV and
+    dQ together)."""
+    dtype = torch.bfloat16
+    q, k, v, do = (randn(gen, b, s, h, d, dtype=dtype) for _ in range(4))
+    got, plain = training_attention(q, k, v, do, True, None)
+    o, lse = plain[0], plain[1]
+    delta = attention_delta(do, o)
+    pairs = attention_pairs(s, True, None)
+    work = {   # (bytes read and written once, operations)
+        "lse": (nbytes(q, k, v, o, lse), 4 * d * h * b * pairs),
+        "dkv": (nbytes(q, k, v, do, lse, delta, k, v), 8 * d * h * b * pairs),
+        "dq": (nbytes(q, k, v, do, lse, delta, q), 6 * d * h * b * pairs)}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
+
+    fwd_ms = time_ms(sdpa_fwd)
+    bwd_ms = time_ms(sdpa_fwd_bwd) - fwd_ms
+    timed = {
+        "lse": (lambda: flash_attention_lse(q, k, v),
+                lambda: ref.fwd_with_lse_ref(q, k, v), fwd_ms,
+                "F.scaled_dot_product_attention(is_causal=True), forward"),
+        "dkv": (lambda: flash_attention_dkv(q, k, v, do, lse, delta),
+                lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do),
+                bwd_ms, "SDPA backward (forward+backward minus forward); "
+                "it computes dQ, dK and dV together"),
+        "dq": (lambda: flash_attention_dq(q, k, v, do, lse, delta),
+               lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do),
+               bwd_ms, "SDPA backward (forward+backward minus forward); "
+               "it computes dQ, dK and dV together")}
+    meta = {"lse": ("flash_attention_lse", "flash_attention.cu",
+                    "src/repro/kernels/flash_attention_bwd.py:116", (0, 1)),
+            "dkv": ("flash_attention_dkv", "flash_attention_bwd.cu",
+                    "src/repro/kernels/flash_attention_bwd.py:293", (3, 4)),
+            "dq": ("flash_attention_dq", "flash_attention_bwd.cu",
+                   "src/repro/kernels/flash_attention_bwd.py:331", (2,))}
+    out = []
+    for key, (kernel, plain_fn, lib_ms, lib_call) in timed.items():
+        name, src, replaces, idx = meta[key]
+        bound_ms, bound_by = bound(*work[key], dtype)
+        err = max((got[i].float() - plain[i].float()).abs().max().item()
+                  for i in idx)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": None,
+            "shape": [b, s, h, h, d], "dtype": "bf16", "max_abs_err": err,
+            "ms": time_ms(kernel, 20), "plain_ms": time_ms(plain_fn, 5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "library_call": lib_call})
+    out[0]["cases"] = check_training_attention(gen)
+    return out
+
+
+def assign_flips(z, c, a, pa, tol_rel: float = 1e-5) -> tuple:
+    """Kernel vs plain argmin: a flip counts as wrong only where the two
+    best distances are more than ``tol_rel`` of the distance scale
+    apart.  -> (flips, wrong flips)."""
+    from repro_torch.core.routing.kmeans import squared_distances
+    full = squared_distances(z, c)
+    top2 = torch.topk(-full, min(2, c.shape[0]), dim=-1).values
+    gap = (top2[:, 0] - top2[:, -1]).abs()
+    differ = a != pa
+    wrong = differ & (gap > tol_rel * full.abs().max())
+    return int(differ.sum()), int(wrong.sum())
+
+
+def check_router_assign(gen) -> dict:
+    # (N, D, K): ragged N, a large table (several centroid tiles), and
+    # the training phase's features (2048 documents, d_model, K = 4)
+    cases = [(513, 32, 8), (65536, 896, 256), (DOCS, 896, TRAIN_PATHS)]
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for n, d, k in cases:
+            z, c = randn(gen, n, d, dtype=dtype), randn(gen, k, d, dtype=dtype)
+            a, d2 = router_assign(z, c)
+            torch.cuda.synchronize()
+            pa, pd2 = ref.router_assign_ref(z, c)
+            flips, wrong = assign_flips(z, c, a, pa)
+            err = (d2 - pd2).abs().max().item()
+            scale = pd2.abs().max().item()
+            row = {"shape": [n, d, k], "dtype": str(dtype), "flips": flips,
+                   "wrong_flips": wrong, "mind2_max_abs_err": err,
+                   "mind2_scale": scale, "tol_rel": 1e-5}
+            rows.append(row)
+            print(f"[router_assign] {row}")
+            assert wrong == 0 and flips <= 1e-3 * n, row
+            assert err <= 1e-5 * max(scale, 1.0), row
+    main = ra_timings(gen, DOCS, 896, TRAIN_PATHS)
+    return {"name": "router_assign", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/router_assign.cu",
+            "replaces": "src/repro/kernels/router_assign.py:29",
+            "launches": None, **main,
+            "library_call": "torch.cdist + argmin",
+            "long": ra_timings(gen, 65536, 896, 256), "cases": rows}
+
+
+def ra_timings(gen, n, d, k) -> dict:
+    """f32, as k-means calls it."""
+    z, c = randn(gen, n, d, dtype=torch.float32), \
+        randn(gen, k, d, dtype=torch.float32)
+    a, d2 = router_assign(z, c)
+    pa, pd2 = ref.router_assign_ref(z, c)
+    bound_ms, bound_by = bound(nbytes(z, c, a, d2), 2.0 * n * k * d,
+                               torch.float32)
+    return {"shape": [n, d, k], "dtype": "f32",
+            "max_abs_err": (d2 - pd2).abs().max().item(),
+            "ms": time_ms(lambda: router_assign(z, c)),
+            "plain_ms": time_ms(lambda: ref.router_assign_ref(z, c)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(lambda: torch.cdist(z, c).argmin(-1))}
+
+
 # ---------------------------------------------------------------------------
-# Phase 3: the slice at full width
+# Phase 3: serving at full width
 # ---------------------------------------------------------------------------
 class CheckedEngine(PathServingEngine):
     """The one-shot engine, keeping a device-side flag of whether every
@@ -259,14 +468,17 @@ class CheckedEngine(PathServingEngine):
         return logits, cache
 
 
+KERNELS = (flash_attention, flash_decode, flash_attention_lse,
+           flash_attention_dkv, flash_attention_dq, router_assign)
+
+
 def reset_counts():
-    flash_attention.launches = 0
-    flash_decode.launches = 0
+    for k in KERNELS:
+        k.launches = 0
 
 
 def counts() -> dict:
-    return {"flash_attention": flash_attention.launches,
-            "flash_decode": flash_decode.launches}
+    return {k.__name__: k.launches for k in KERNELS}
 
 
 def serve(cfg) -> dict:
@@ -300,7 +512,8 @@ def serve(cfg) -> dict:
         new = res.tokens[:, PROMPT_LEN:]
         assert res.tokens.shape == (REQUESTS, PROMPT_LEN + MAX_NEW)
         assert ((new >= 0) & (new < cfg.vocab_size)).all(), new
-        assert all(n > 0 for n in launched.values()), launched
+        assert launched["flash_attention"] > 0, launched
+        assert launched["flash_decode"] > 0, launched
         runs[name] = {"paths": res.paths.tolist(), "switches": res.switches,
                       "tokens_per_s": REQUESTS * MAX_NEW / dt,
                       "seconds": dt, "launches": launched}
@@ -368,6 +581,140 @@ def prefill_decode_parity(cfg, dtype: str, tol: float) -> float:
     return worst
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: training at full width
+# ---------------------------------------------------------------------------
+class TimedStep:
+    """Wraps a trainer's inner step: host time of each call (all workers)
+    after synchronizing the device."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds = fn, []
+
+    def __call__(self, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def train(cfg) -> dict:
+    """The quickstart pipeline through the port's entry points, counted
+    from corpus to routed evaluation."""
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
+                             seq_len=DOC_LEN, seed=0)
+    t0 = time.perf_counter()
+    docs = corpus.sample_documents(DOCS)
+    val = corpus.sample_documents(64, seed=99)
+    print(f"[train] corpus {docs.shape} in {time.perf_counter() - t0:.1f} s")
+    base = api.init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    feats = prefix_features(base, cfg, docs)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cents, assign, inertia = kmeans_fit(feats, TRAIN_PATHS,
+                                        iters=KMEANS_ITERS, generator=gen)
+    ds = shard_documents(docs, assign.cpu().numpy(), TRAIN_PATHS)
+    print(f"[train] k-means shard sizes {ds.sizes.tolist()}, inertia "
+          f"{float(inertia):.4g}")
+    dcfg = DiPaCoConfig(levels=(2, 2), inner_steps=TAU)
+    tr = make_trainer(cfg, dcfg, ds, backend="vector", device="cuda",
+                      base_params=base, batch_size=TRAIN_BATCH, peak_lr=2e-3,
+                      warmup=TAU, total_steps=PHASES * TAU)
+    timer = tr._step_fn = TimedStep(tr._step_fn)
+    phases = []
+    for ph in range(PHASES):
+        m = tr.run_phase()
+        phases.append({"mean_loss": m.mean_loss, "final_loss": m.final_loss,
+                       "per_path_loss": m.per_path_loss.tolist()})
+        print(f"[train] phase {ph}: {phases[-1]}")
+    va, _ = kmeans_assign(prefix_features(base, cfg, val), cents)
+    evaluated = tr.evaluate_routed(val, va.cpu().numpy())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated()
+    W = tr.num_workers
+    step_s = float(np.median(timer.seconds)) / W
+    out = {"phases": phases, "routed_eval": evaluated,
+           "shard_sizes": ds.sizes.tolist(), "seconds": seconds,
+           "inner_step_s_per_worker": step_s,
+           "inner_step_s_all": timer.seconds,
+           "tokens_per_s": TRAIN_BATCH * DOC_LEN / step_s,
+           "peak_memory_gib": peak / 2 ** 30, "launches": launched}
+    print(f"[train] {seconds:.1f} s from features to evaluation; inner step "
+          f"{step_s * 1e3:.1f} ms per worker ({out['tokens_per_s']:.0f} "
+          f"tok/s), peak memory {peak / 2 ** 30:.2f} GiB, routed eval "
+          f"{evaluated}, launches {launched}")
+    losses = [p["mean_loss"] for p in phases]
+    assert all(np.isfinite(losses)) and np.isfinite(evaluated["nll"]), out
+    assert losses[1] < losses[0], losses
+    steps = W * TAU * PHASES                  # inner steps of all workers
+    for name in ("flash_attention_lse", "flash_attention_dkv",
+                 "flash_attention_dq"):
+        assert launched[name] == cfg.num_layers * steps, (name, launched)
+    # one per Lloyd iteration, the final assignment, and the validation
+    assert launched["router_assign"] == KMEANS_ITERS + 2, launched
+    assert launched["flash_attention"] > 0, launched
+    out["device_busy_share"] = train_busy_share(tr)
+    return out
+
+
+def train_busy_share(tr) -> dict:
+    """Device kernel time over wall time for one inner step of all
+    workers, from torch.profiler (after the counted run)."""
+    batches = torch.as_tensor(np.stack(
+        [ld.tokens[:TRAIN_BATCH] for ld in tr.loaders]), device="cuda")
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr._step_fn(tr.worker_params, tr.opt_state, {"tokens": batches},
+                    tr.lr(tr.step).cuda())
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    out = {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
+           "busy_share": device_us / wall_us if device_us else None,
+           "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                              for e in top}}
+    print(f"[train profile] {out}")
+    return out
+
+
+def train_grad_parity(cfg, dtype: str) -> dict:
+    """One inner step's loss gradient on fixed weights, through the
+    kernels (attn_impl="pallas") and through the plain attention
+    (attn_impl="full"): ||a - b|| / ||b|| for every leaf."""
+    cfg_k = cfg.replace(dtype=dtype)
+    params = api.init_model(cfg_k, seed=11, device="cuda")
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
+                             seq_len=DOC_LEN, seed=5)
+    batch = {"tokens": torch.as_tensor(corpus.sample_documents(2),
+                                       device="cuda")}
+    grads = {}
+    for impl in ("pallas", "full"):
+        loss, _, g = value_and_grad(params, cfg_k.replace(attn_impl=impl),
+                                    batch)
+        grads[impl] = (float(loss), tree_leaves(g))
+    errs = [float((a.float() - b.float()).norm() / b.float().norm()
+                  .clamp_min(1e-30))
+            for a, b in zip(grads["pallas"][1], grads["full"][1])]
+    out = {"loss_kernels": grads["pallas"][0], "loss_plain": grads["full"][0],
+           "leaves": len(errs), "max_rel_err": max(errs),
+           "tol": TRAIN_GRAD_TOL[dtype]}
+    print(f"[train grads] {dtype}: {out}")
+    assert all(float(b.float().norm()) > 0 for b in grads["pallas"][1])
+    assert max(errs) <= TRAIN_GRAD_TOL[dtype], out
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -391,21 +738,32 @@ def main() -> int:
                 print(f"[ptxas {name}] {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [check_flash_attention(gen), check_flash_decode(gen)]
+    kernels = [check_flash_attention(gen), check_flash_decode(gen),
+               *training_attention_timings(gen, TRAIN_BATCH, DOC_LEN, 16,
+                                           64),
+               check_router_assign(gen)]
 
     cfg = get_config("dipaco-150m").replace(attn_impl="pallas",
                                             dtype="bfloat16")
     runs = serve(cfg)
-    for k in kernels:
-        k["launches"] = runs["plain"]["launches"][k["name"]]
-        k["launches_reroute"] = runs["reroute"]["launches"][k["name"]]
     # f32: summation order only, over 12 blocks; bf16: one bf16 rounding
     # of each block's attention output, carried through 12 blocks
     parity = {"float32": prefill_decode_parity(cfg, "float32", 1e-3),
               "bfloat16": prefill_decode_parity(cfg, "bfloat16", 0.25)}
 
+    trained = train(cfg.replace(route_prefix_len=32))
+    grads = {dt: train_grad_parity(cfg, dt) for dt in ("float32", "bfloat16")}
+    for k in kernels:
+        if k["name"] in ("flash_attention", "flash_decode"):
+            k["launches"] = runs["plain"]["launches"][k["name"]]
+            k["launches_reroute"] = runs["reroute"]["launches"][k["name"]]
+        else:
+            k["launches"] = trained["launches"][k["name"]]
+    kernels[0]["launches_train"] = trained["launches"]["flash_attention"]
+
     summary = {"kernels": kernels}
-    print(json.dumps({"serve": runs, "prefill_decode_max_dlogit": parity}))
+    print(json.dumps({"serve": runs, "prefill_decode_max_dlogit": parity,
+                      "train": trained, "train_grad_parity": grads}))
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

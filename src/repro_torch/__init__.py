@@ -9,6 +9,7 @@ submodule until an attribute is used:
 
     params = repro_torch.init_model(cfg, seed=0, device="cuda")
     eng = repro_torch.PathServingEngine(cfg, [params], options=...)
+    tr = repro_torch.make_trainer(cfg, dcfg, dataset, backend="vector")
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card
 they raise instead of running on the CPU (tests pass ``device="cpu"``).
@@ -26,6 +27,8 @@ _LAZY = {
     "DiscriminativeRouter": "repro_torch.core.routing.discriminative",
     "from_numpy_tree": "repro_torch.models.params",
     "to_numpy_tree": "repro_torch.models.params",
+    "make_trainer": "repro_torch.training",
+    "DiPaCoConfig": "repro_torch.models.config",
 }
 
 __all__ = sorted(_LAZY)

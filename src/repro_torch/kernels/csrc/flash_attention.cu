@@ -6,6 +6,12 @@
 // tiles.  q (B,S,H,D), k and v (B,S,KH,D), f32 or bf16, row-major and
 // contiguous; the output has q's shape and dtype.  Accumulation is f32.
 //
+// The same kernel, instantiated with LSE = true, replaces the training
+// forward repro/kernels/flash_attention_bwd.py:116 `_fwd_with_lse_aligned`
+// (pallas_call :126, body `_fwd_lse_kernel` :32): it also writes the
+// log-sum-exp row lse (B,H,S) f32 = m + log(max(l, 1e-30)) that the
+// backward kernels (flash_attention_bwd.cu) recompute p from.
+//
 // What bounds it on the H100.  At the serving path's routing shapes
 // (S = 32) the work is a few MFLOP and the kernel is bound by launch and
 // by reading q, k and v once.  At long S the causal work grows as S^2
@@ -57,11 +63,12 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (BM * (D + 1) + BN * (D + 1) + BN * D + BM * PP);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                 int KH, int causal, int window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int S, int H, int KH, int causal,
+                 int window, float scale) {
   extern __shared__ float smem[];
   constexpr int DP = D + 1;     // padded row: no bank conflicts on columns
   float* Qs = smem;             // BM x DP
@@ -181,40 +188,57 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = ob + (long)(q0 + r) * q_stride + half * (D / 2);
 #pragma unroll
     for (int c = 0; c < D / 2; ++c) orow[c] = from_f<T>(acc[c] / denom);
+    if (LSE && half == 0)
+      lse[((long)b * H + h) * S + q0 + r] = m_i + logf(denom);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KH, int causal, int window,
-                   cudaStream_t stream) {
+                   float* lse, int B, int S, int H, int KH, int causal,
+                   int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, D, LSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BM - 1) / BM, B * H);
   const float scale = 1.0f / sqrtf((float)D);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, D, LSE><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KH, causal,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, KH, causal,
       window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool LSE>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       int B, int S, int H, int KH, int D, int causal,
-                       int window, cudaStream_t stream) {
+                       float* lse, int B, int S, int H, int KH, int D,
+                       int causal, int window, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KH, causal, window,
-                                  stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KH, causal, window,
-                                  stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KH, causal, window,
-                                    stream);
+    case 32: return launch<T, 32, LSE>(q, k, v, o, lse, B, S, H, KH, causal,
+                                       window, stream);
+    case 64: return launch<T, 64, LSE>(q, k, v, o, lse, B, S, H, KH, causal,
+                                       window, stream);
+    case 128: return launch<T, 128, LSE>(q, k, v, o, lse, B, S, H, KH,
+                                         causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool LSE>
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int S, int H, int KH, int D, int causal,
+             int window, int dtype, void* stream) {
+  if (B < 1 || S < 1 || KH < 1 || H % KH != 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_d<float, LSE>(q, k, v, o, lse, B, S, H, KH, D, causal,
+                                  window, st);
+  if (dtype == 1)
+    return dispatch_d<__nv_bfloat16, LSE>(q, k, v, o, lse, B, S, H, KH, D,
+                                          causal, window, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -225,12 +249,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int S,
                                    int H, int KH, int D, int causal,
                                    int window, int dtype, void* stream) {
-  if (B < 1 || S < 1 || KH < 1 || H % KH != 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, B, S, H, KH, D, causal, window, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, S, H, KH, D, causal,
-                                     window, st);
-  return cudaErrorInvalidValue;
+  return dispatch<false>(q, k, v, o, nullptr, B, S, H, KH, D, causal, window,
+                         dtype, stream);
+}
+
+// The training forward: as flash_attention_fwd, and also lse (B,H,S) f32.
+extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
+                                       const void* v, void* o, void* lse,
+                                       int B, int S, int H, int KH, int D,
+                                       int causal, int window, int dtype,
+                                       void* stream) {
+  return dispatch<true>(q, k, v, o, static_cast<float*>(lse), B, S, H, KH,
+                        D, causal, window, dtype, stream);
 }

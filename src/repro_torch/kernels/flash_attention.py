@@ -15,7 +15,7 @@ import torch
 
 from . import build
 
-_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 
 
@@ -28,19 +28,17 @@ def _lib():
     return fn
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, S, H, D); k, v: (B, S, KH, D) -> (B, S, H, D) in q's dtype.
-
-    Any S: the ragged tail is masked inside the kernel.
-    """
+def check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              window: Optional[int]) -> tuple:
+    """Raise unless q (B,S,H,D), k, v (B,S,KH,D) are contiguous CUDA
+    tensors of one dtype that the attention kernels take; -> (b, s, h,
+    kh, d)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention kernel takes CUDA tensors on one "
-                         f"device, got {q.device}, {k.device}, {v.device}")
-    if q.dtype not in _DTYPE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes f32 or bf16 q, k, v of one "
-                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise ValueError(f"{name} kernel takes CUDA tensors on one device, "
+                         f"got {q.device}, {k.device}, {v.device}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} takes f32 or bf16 q, k, v of one dtype, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)},"
                          f" v {tuple(v.shape)}")
@@ -55,10 +53,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention takes contiguous q, k, v")
+        raise ValueError(f"{name} takes contiguous q, k, v")
+    return b, s, h, kh, d
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, S, H, D); k, v: (B, S, KH, D) -> (B, S, H, D) in q's dtype.
+
+    Any S: the ragged tail is masked inside the kernel.
+    """
+    b, s, h, kh, d = check_qkv("flash_attention", q, k, v, window)
     out = torch.empty_like(q)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, s, h, kh, d, int(causal), window or 0, _DTYPE[q.dtype],
+                b, s, h, kh, d, int(causal), window or 0, DTYPES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "

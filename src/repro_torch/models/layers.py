@@ -312,7 +312,9 @@ def apply_attention(p, cfg: ModelConfig, x, *, positions, causal=True,
                               cfg.head_dim).to(x.dtype)
     else:
         if cfg.attn_impl == "pallas" and causal:
-            # the kernel masks the ragged tail itself: no padding to 128
+            # the kernel masks the ragged tail itself: no padding to 128.
+            # Differentiable: with grads on, ops takes the autograd
+            # Function (LSE forward + dK/dV and dQ kernels)
             out = ops.flash_attention(q, k, v, causal=True, window=window)
         elif cfg.attn_impl == "full" or s <= cfg.attn_chunk_q:
             out = full_attention(q, k, v, causal=causal, window=window)

@@ -1,5 +1,7 @@
 """Parameter trees: nested dicts of tensors with the JAX tree's keys,
-shapes and dtypes, plus the numpy bridge to and from the reference.
+shapes and dtypes, the logical-axes tree that the reference's
+``init_model`` returns beside them (``param_axes``), and the numpy bridge
+to and from the reference.
 
 A JAX ``bfloat16`` leaf arrives in numpy as ``ml_dtypes.bfloat16``,
 which ``torch.from_numpy`` rejects; it crosses as its raw 16 bits
@@ -15,18 +17,72 @@ import torch
 from repro_torch.device import resolve_device
 
 ParamTree = Any  # nested dict[str, ParamTree | torch.Tensor]
+AxisTree = Any   # same structure, leaves: tuple[str | None, ...]
+
+# logical axis names of the reference (repro/models/params.py)
+LAYERS = "layers"       # stacked layer axis
+EMBED = "embed"
+HEADS = "heads"
+KV_HEADS = "kv_heads"
+HEAD_DIM = "head_dim"
+MLP = "mlp"
+VOCAB = "vocab"
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of ``tree`` and of parallel trees ``rest``."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_unflatten(template, leaves) -> ParamTree:
+    """The tree of ``template``'s structure with ``leaves`` in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
+def tree_map_with_axes(fn, params: ParamTree, axes: AxisTree):
+    """Map fn(leaf, axes_leaf) over parallel trees."""
+    return tree_map(fn, params, axes)
+
+
+def param_axes(cfg) -> AxisTree:
+    """The logical axes of every leaf of ``init_model(cfg)``, as the
+    reference's ``init_model`` returns them: layer leaves carry
+    ``LAYERS`` first.  Dense attention blocks only, like the port."""
+    attn = {"wq": (EMBED, HEADS, HEAD_DIM), "wk": (EMBED, KV_HEADS, HEAD_DIM),
+            "wv": (EMBED, KV_HEADS, HEAD_DIM), "wo": (HEADS, HEAD_DIM, EMBED)}
+    if cfg.qk_norm:
+        attn["q_norm"] = (HEAD_DIM,)
+        attn["k_norm"] = (HEAD_DIM,)
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        mlp = {"w_gate": (EMBED, MLP), "w_up": (EMBED, MLP),
+               "w_down": (MLP, EMBED)}
+    else:
+        mlp = {"w_up": (EMBED, MLP), "w_down": (MLP, EMBED)}
+    blocks = {}
+    for i, spec in enumerate(cfg.pattern):
+        if spec.mixer != "attn" or spec.mlp not in ("dense", "none"):
+            raise NotImplementedError(
+                f"block {spec} is not ported to repro_torch yet")
+        block = {"norm1": (EMBED,), "mixer": attn}
+        if spec.mlp != "none":
+            block["norm2"] = (EMBED,)
+            block["mlp"] = mlp
+        blocks[f"pos{i}"] = tree_map(lambda ax: (LAYERS, *ax), block)
+    embed = {"embedding": (VOCAB, EMBED)}
+    if not cfg.tie_embeddings:
+        embed["unembed"] = (EMBED, VOCAB)
+    return {"embed": embed, "blocks": blocks, "final_norm": (EMBED,)}
 
 
 def _leaf_to_torch(x, device: torch.device) -> torch.Tensor:

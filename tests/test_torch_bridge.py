@@ -120,10 +120,14 @@ def _no_card():
 
 
 @pytest.mark.parametrize("entry", [
-    "init_model", "from_numpy_tree", "init_serve_cache", "serve_main"])
+    "init_model", "from_numpy_tree", "init_serve_cache", "serve_main",
+    "make_trainer", "train_main"])
 def test_default_device_without_card_raises(entry):
     _no_card()
     cfg = tcfgs.get_smoke_config("dipaco-150m")
+    from repro_torch.data import shard_documents
+    from repro_torch.models.config import DiPaCoConfig
+    ds = shard_documents(np.zeros((8, 16), np.int32), np.arange(8) % 4, 4)
     calls = {
         "init_model": lambda: tapi.init_model(cfg),
         "from_numpy_tree": lambda: from_numpy_tree(
@@ -131,6 +135,11 @@ def test_default_device_without_card_raises(entry):
         "init_serve_cache": lambda: tapi.init_serve_cache(cfg, 1, 8),
         "serve_main": lambda: __import__(
             "repro_torch.launch.serve", fromlist=["main"]).main([]),
+        "make_trainer": lambda: __import__(
+            "repro_torch", fromlist=["make_trainer"]).make_trainer(
+                cfg, DiPaCoConfig(), ds),
+        "train_main": lambda: __import__(
+            "repro_torch.launch.train", fromlist=["main"]).main(["--smoke"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -141,16 +150,34 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     CPU tensor to the plain version."""
     from repro_torch.kernels.decode_attention import flash_decode
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_dkv, flash_attention_dq, flash_attention_lse)
+    from repro_torch.kernels.router_assign import router_assign
     q = torch.zeros(1, 4, 2, 32)
+    lse = torch.zeros(1, 2, 4)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         flash_decode(q[:, 0], q, q, torch.zeros(1, dtype=torch.int32))
-    assert flash_attention.launches == 0 and flash_decode.launches == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_lse(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_dkv(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_dq(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        router_assign(q[0, 0], q[0, 0])
+    kernels = (flash_attention, flash_decode, flash_attention_lse,
+               flash_attention_dkv, flash_attention_dq, router_assign)
+    assert all(k.launches == 0 for k in kernels)
 
 
 def test_ops_reject_other_devices():
     from repro_torch.kernels import ops
     q = torch.zeros(1, 4, 2, 32, device="meta")
-    with pytest.raises(ValueError, match="no attention kernel"):
+    with pytest.raises(ValueError, match="no kernel for device"):
         ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.flash_attention_trainable(q, q, q)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.router_assign(q[0, 0], q[0, 0])

@@ -125,3 +125,119 @@ def test_model_decode_goes_through_both_kernels(cuda):
     assert flash_decode.launches == fd + cfg.num_layers
     assert torch.isfinite(logits).all()
 
+
+
+# the backward cases of tests/test_kernels.py (B=2, causal and not, ragged
+# S, a non-causal GQA window), the other head dims, and a long ragged S
+# over several tiles: (S, H, KH, D, causal, window)
+BWD_CASES = [
+    (128, 4, 2, 32, True, None),
+    (96, 2, 1, 64, True, 24),
+    (64, 4, 4, 32, False, None),
+    (80, 2, 2, 32, True, None),
+    (64, 4, 2, 32, False, 16),
+    (200, 4, 4, 128, True, None),
+    (333, 8, 2, 64, True, 100),
+]
+# gradients: f32 differs by summation order only; bf16 by one bf16
+# rounding of each output, relative to the largest gradient
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rel_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,kh,d,causal,window", BWD_CASES)
+def test_training_attention_kernels_match_plain(cuda, dtype, s, h, kh, d,
+                                                causal, window):
+    """The LSE forward, dK/dV and dQ kernels against their plain
+    versions on the same inputs."""
+    from repro_torch.kernels.flash_attention_bwd import (
+        attention_delta, flash_attention_dkv, flash_attention_dq,
+        flash_attention_lse)
+    q, k, v, do = (x.to(cuda, dtype) for x in _randn(
+        7, (2, s, h, d), (2, s, kh, d), (2, s, kh, d), (2, s, h, d)))
+    counts = (flash_attention_lse.launches, flash_attention_dkv.launches,
+              flash_attention_dq.launches)
+    o, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+    po, plse = ref.fwd_with_lse_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), po.float(), atol=TOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
+    delta = attention_delta(do, po)
+    dk, dv = flash_attention_dkv(q, k, v, do, plse, delta, causal=causal,
+                                 window=window)
+    dq = flash_attention_dq(q, k, v, do, plse, delta, causal=causal,
+                            window=window)
+    torch.cuda.synchronize()
+    assert (flash_attention_lse.launches, flash_attention_dkv.launches,
+            flash_attention_dq.launches) == tuple(c + 1 for c in counts)
+    plain = ref.flash_attention_bwd_ref(q, k, v, po, plse, do, causal=causal,
+                                        window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), plain):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert _rel_err(a, b) <= GRAD_TOL[dtype], (name, _rel_err(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,k", [(513, 32, 8), (1000, 64, 16),
+                                   (256, 128, 4), (300, 96, 70),
+                                   (4096, 896, 256)])
+def test_router_assign_kernel_matches_plain(cuda, dtype, n, d, k):
+    """Same argmin except where the two best distances lie within 1e-5
+    of the distance scale (summation orders differ); min d2 likewise."""
+    from repro_torch.core.routing.kmeans import squared_distances
+    from repro_torch.kernels.router_assign import router_assign
+    z, c = (x.to(cuda, dtype) for x in _randn(8, (n, d), (k, d)))
+    a, d2 = router_assign(z, c)
+    pa, pd2 = ref.router_assign_ref(z, c)
+    torch.cuda.synchronize()
+    full = squared_distances(z, c)
+    scale = float(full.abs().max())
+    top2 = torch.topk(-full, min(2, k), dim=-1).values
+    gap = (top2[:, 0] - top2[:, -1]).abs()
+    differ = a != pa
+    assert bool((gap[differ] <= 1e-5 * scale).all())
+    assert float(differ.float().mean()) <= 1e-3
+    torch.testing.assert_close(d2, pd2, atol=1e-5 * scale, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_pallas_loss_backward_reaches_attention_weights(cuda):
+    """loss.backward() through attn_impl="pallas" (FlashAttention: LSE
+    forward, dK/dV and dQ kernels) gives every leaf, wq/wk/wv among them,
+    the plain path's gradient; bf16, relative to the largest gradient of
+    each leaf, within 3e-2 (a few bf16 roundings through 2 blocks)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention_bwd import (flash_attention_dkv,
+                                                         flash_attention_dq)
+    from repro_torch.models import api
+    from repro_torch.models.params import tree_leaves
+    cfg = get_smoke_config("dipaco-150m").replace(dtype="bfloat16",
+                                                  route_prefix_len=8)
+    toks = torch.randint(0, cfg.vocab_size, (2, 96), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(0))
+    grads = {}
+    for impl in ("pallas", "full"):
+        params = api.init_model(cfg, seed=0, device=cuda)
+        for leaf in tree_leaves(params):
+            leaf.requires_grad_(True)
+        before = flash_attention_dkv.launches, flash_attention_dq.launches
+        loss, _ = api.forward_loss(params, cfg.replace(attn_impl=impl),
+                                   {"tokens": toks})
+        loss.backward()
+        launched = (flash_attention_dkv.launches - before[0],
+                    flash_attention_dq.launches - before[1])
+        assert launched == ((cfg.num_layers,) * 2 if impl == "pallas"
+                            else (0, 0))
+        grads[impl] = params["blocks"]["pos0"]["mixer"]
+    for name in ("wq", "wk", "wv", "wo"):
+        a = grads["pallas"][name].grad
+        b = grads["full"][name].grad
+        assert a is not None and float(a.float().abs().max()) > 0, name
+        assert _rel_err(a, b) <= 3e-2, (name, _rel_err(a, b))
