@@ -12,9 +12,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 2. Kernels against their plain PyTorch versions on the card, in bf16 and
    f32, at the main paths' shapes and at others: flash attention and
    flash decode (serving), the forward that writes the LSE rows, the
-   dK/dV and dQ backward kernels and the k-means assignment (training).
-   Times each kernel, its plain version and one PyTorch call as a
-   yardstick.
+   dK/dV and dQ backward kernels and the k-means assignment (training),
+   the SSD scan (Mamba2, with its final state) and the expert GEMM
+   (token MoE).  Times each kernel, its plain version and one PyTorch
+   call as a yardstick where one computes the same function.
 3. Serving at full width: ``dipaco-150m`` (12 blocks, d 896, vocab
    32000) in bf16 with ``attn_impl="pallas"``, 4 random paths and a
    discriminative router; ``PathServingEngine.generate`` serves 8 corpus
@@ -30,6 +31,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    training kernel must launch as often as the path needs it.  One inner
    step's gradients through the kernels are compared with the plain
    attention's, leaf by leaf, in f32 and bf16.
+5. Serving the SSM and token-MoE families at full width and depth, in
+   bf16 with ``attn_impl="pallas"``: ``mamba2-1.3b`` (48 Mamba2 blocks,
+   4 paths) and ``qwen2-moe-a2.7b`` (24 blocks of attention and 60
+   experts top-4 plus 4 shared, 2 paths of about 28 GB), each as phase 3
+   serves: a discriminative router over path 0's prefix features, 8
+   prompts of 64 tokens, 16 new tokens, plain and re-routed.  Every
+   decode step must be finite, and every kernel of the path must launch
+   as often as its blocks need it.  Then ``prefill`` and 16 decode steps
+   through the kernels against the plain path, in f32 and bf16.
 
 It prints one ``{"kernels": [...]}`` line before the card's line, and
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -38,6 +48,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -62,9 +73,11 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
     attention_delta, flash_attention_dkv, flash_attention_dq,
     flash_attention_lse)
+from repro_torch.kernels.moe_gmm import expert_gemm  # noqa: E402
 from repro_torch.kernels.router_assign import router_assign  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.launch.steps import value_and_grad  # noqa: E402
-from repro_torch.models import api  # noqa: E402
+from repro_torch.models import api, moe_layer  # noqa: E402
 from repro_torch.models.config import DiPaCoConfig  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
 from repro_torch.serving import EngineOptions, PathServingEngine  # noqa: E402
@@ -75,13 +88,20 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # kernel vs plain version on the same inputs: both accumulate in f32, so
 # f32 differs only by summation order; a bf16 output may differ by one
-# bf16 rounding of values below 4 (2^-7 at most)
+# bf16 rounding of values below 4 (2^-7 at most).  The SSD's f32 check is
+# relative to its largest output: its segment-difference form
+# exp(cum_l - cum_s) loses about |cum| 2^-24 in each exponent on either
+# side, and |cum| grows to a few hundred over a 256-token chunk
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # gradients, relative to the largest of each output: f32 differs by
 # summation order only, bf16 by one bf16 rounding of each output
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 PROMPT_LEN, MAX_NEW, NUM_PATHS, REQUESTS, REROUTE_EVERY = 64, 16, 4, 8, 4
 CACHE_LEN = PROMPT_LEN + MAX_NEW
+# prompt tokens in the profiled generate of the SSM and MoE families (the
+# processing of a 48-block model's profile grows with its ~1,400
+# operations a step); dipaco-150m keeps its 64
+PROFILE_PROMPT = 16
 # the training phase: documents, their length, K = paths = workers, the
 # batch per worker, inner steps per phase, phases, Lloyd iterations
 DOCS, DOC_LEN, TRAIN_PATHS, TRAIN_BATCH, TAU, PHASES, KMEANS_ITERS = \
@@ -90,6 +110,25 @@ DOCS, DOC_LEN, TRAIN_PATHS, TRAIN_BATCH, TAU, PHASES, KMEANS_ITERS = \
 # ||a - b|| / ||b|| per leaf after 12 blocks: f32 differs by summation
 # order; bf16 by the rounding of every activation on both paths
 TRAIN_GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# the SSM and token-MoE families served at full width and depth: (name,
+# paths, {dtype: max |dlogit| tolerance of prefill + decode}, that
+# check's prompt tokens and batch, and the blocks of its f32 run).
+# f32: summation order only: the GEMM's d sums (1e-3, as dipaco-150m's
+# check), and the SSD's segment differences, about 3e-5 of each block's
+# scan output (see TOL) carried through 48 blocks onto logits of a few
+# units (1e-2).  bf16: one rounding of each kernel output, carried
+# through 48 blocks of mamba2-1.3b or 24 of qwen2-moe-a2.7b (1.0, as
+# against logits of about 4 to 5).  The MoE check is teacher-forced
+# (ForcedExperts): a near-tie among 60 router probabilities would flip a
+# token's top-4 set between the runs and, through it, every later block
+# and position.  mamba2-1.3b prefills 2 prompts of 2048 tokens (8
+# chunks); qwen2-moe-a2.7b 8 of 48, its f32 weights cut to 8 blocks (56
+# GB at 24), widths unchanged.
+FAMILIES = (
+    ("mamba2-1.3b", 4, {"float32": 1e-2, "bfloat16": 1.0}, 2048, 2, None),
+    ("qwen2-moe-a2.7b", 2, {"float32": 1e-3, "bfloat16": 1.0},
+     PROMPT_LEN - MAX_NEW, REQUESTS, 8),
+)
 
 
 def time_ms(fn, iters: int = 50) -> float:
@@ -136,9 +175,11 @@ def attention_pairs(s: int, causal: bool, window) -> int:
 
 
 def check_flash_attention(gen) -> dict:
-    # (B, S, H, KH, D, window): the routing features' shape, a long
-    # sequence, a ragged S with a window under GQA, and the other head dims
-    cases = [(8, 32, 16, 16, 64, None), (2, 2048, 16, 16, 64, None),
+    # (B, S, H, KH, D, window): the routing features' shape in
+    # dipaco-150m and in qwen2-moe-a2.7b, a long sequence, a ragged S with
+    # a window under GQA, and the other head dims
+    cases = [(8, 32, 16, 16, 64, None), (8, 32, 16, 16, 128, None),
+             (2, 2048, 16, 16, 64, None),
              (2, 1000, 16, 4, 64, 256), (1, 333, 8, 8, 128, None),
              (2, 77, 4, 2, 32, 16)]
     rows = []
@@ -209,16 +250,17 @@ def decode_work(ci, T, kh, d, window, h, elem) -> tuple:
 
 def check_flash_decode(gen) -> dict:
     # (B, H, KH, D, T, window, cache_index): the path's cache at its last
-    # step and mid-prompt, a large batch over a long cache with ring
-    # wrap, GQA with a window over a wrapped ring, and the other head dims
+    # step and mid-prompt, in dipaco-150m (D 64) and qwen2-moe-a2.7b (D
+    # 128), a large batch over a long cache with ring wrap, GQA with a
+    # window over a wrapped ring, and the other head dims
     rng = np.random.default_rng(0)
-    cases = [(8, 16, 16, 64, CACHE_LEN, None, [CACHE_LEN - 1] * 8),
-             (8, 16, 16, 64, CACHE_LEN, None, list(range(0, 80, 10))),
-             (64, 16, 16, 64, 2048, None,
-              rng.integers(0, 3 * 2048, 64).tolist()),
-             (8, 16, 4, 64, 512, 128, rng.integers(0, 2000, 8).tolist()),
-             (3, 8, 1, 128, 100, None, [0, 99, 250]),
-             (2, 4, 2, 32, 40, 12, [7, 90])]
+    cases = [(8, 16, 16, d, CACHE_LEN, None, ci) for d in (64, 128)
+             for ci in ([CACHE_LEN - 1] * 8, list(range(0, 80, 10)))]
+    cases += [(64, 16, 16, 64, 2048, None,
+               rng.integers(0, 3 * 2048, 64).tolist()),
+              (8, 16, 4, 64, 512, 128, rng.integers(0, 2000, 8).tolist()),
+              (3, 8, 1, 128, 100, None, [0, 99, 250]),
+              (2, 4, 2, 32, 40, 12, [7, 90])]
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for int8 in (False, True):
@@ -455,21 +497,150 @@ def ra_timings(gen, n, d, k) -> dict:
             "library_ms": time_ms(lambda: torch.cdist(z, c).argmin(-1))}
 
 
+def ssd_inputs(gen, b, s, h, p, g, n, dtype, pad=0):
+    """x / 8, dt = softplus(z - 2) (f32), A = -(1..H) as the model's
+    A_log gives it, and grouped B, C scaled so that C . B is about 1
+    (outputs stay below 4, where one bf16 rounding is within TOL); with
+    ``pad`` the last tokens are zero (dt = 0), as ``apply_mamba`` pads
+    a ragged length to its chunk."""
+    x = randn(gen, b, s, h, p, dtype=torch.float32).mul_(0.125).to(dtype)
+    dt = F.softplus(randn(gen, b, s, h, dtype=torch.float32) - 2.0)
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device="cuda")
+    bm, cm = (randn(gen, b, s, g, n, dtype=torch.float32).mul_(n ** -0.25)
+              .to(dtype) for _ in range(2))
+    if pad:
+        for t in (x, dt, bm, cm):
+            t[:, s - pad:] = 0
+    return x, dt, a, bm, cm
+
+
+def ssd_work(x, dt, a, bm, cm, chunk) -> tuple:
+    """(bytes, operations) of one scan: every input read once, y and the
+    f32 state written once; per chunk the causal half of the scores
+    (L(L+1)/2 pairs, 2N each) and of scores x values (2P each), and the
+    inter-chunk output and state update (2LPN each)."""
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    L = chunk
+    ops = b * h * (s // L) * (L * (L + 1) * (n + p) + 4 * L * p * n)
+    return nbytes(x, dt, a, bm, cm, x) + b * h * p * n * 4, float(ops)
+
+
+def check_ssd_scan(gen) -> dict:
+    # (B, S, H, P, G, N, chunk, padded tail): a full-width prefill (8
+    # chunks), the routing prefix of the serving path (chunk = S = 32), a
+    # ragged length (1000 tokens padded to 1024), a 6-token prompt
+    cases = [(8, 2048, 64, 64, 1, 128, 256, 0), (8, 32, 64, 64, 1, 128, 32, 0),
+             (8, 1024, 64, 64, 1, 128, 256, 24), (8, 6, 64, 64, 1, 128, 6, 0)]
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, s, h, p, g, n, chunk, pad in cases:
+            x, dt, a, bm, cm = ssd_inputs(gen, b, s, h, p, g, n, dtype, pad)
+            y, state = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+            torch.cuda.synchronize()
+            py, pstate = ref.ssd_scan_ref(x, dt, a, bm, cm, chunk=chunk)
+            err = (y.float() - py.float()).abs().max().item()
+            serr = (state - pstate).abs().max().item()
+            scale = max(1.0, py.float().abs().max().item())
+            sscale = max(1.0, pstate.abs().max().item())
+            tol = TOL[dtype] * (scale if dtype == torch.float32 else 1.0)
+            row = {"shape": [b, s, h, p, g, n], "chunk": chunk, "pad": pad,
+                   "dtype": str(dtype), "max_abs_err": err,
+                   "state_max_abs_err": serr, "y_scale": scale,
+                   "tol": tol, "state_tol": TOL[torch.float32] * sscale}
+            rows.append(row)
+            print(f"[ssd_scan] {row}")
+            assert err <= row["tol"] and serr <= row["state_tol"], row
+    main = ssd_timings(gen, 8, 32, 32)
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:61",
+            "launches": None, **main,
+            "library_call": "none: no one PyTorch call computes the SSD "
+                            "scan",
+            "long": ssd_timings(gen, 8, 2048, 256), "cases": rows}
+
+
+def ssd_timings(gen, b, s, chunk) -> dict:
+    """bf16 at mamba2-1.3b's widths (H64 P64 G1 N128)."""
+    dtype = torch.bfloat16
+    args = ssd_inputs(gen, b, s, 64, 64, 1, 128, dtype)
+    y, state = ssd_scan(*args, chunk=chunk)
+    py, pstate = ref.ssd_scan_ref(*args, chunk=chunk)
+    bound_ms, bound_by = bound(*ssd_work(*args, chunk), dtype)
+    return {"shape": [b, s, 64, 64, 1, 128], "chunk": chunk, "dtype": "bf16",
+            "max_abs_err": (y.float() - py.float()).abs().max().item(),
+            "state_max_abs_err": (state - pstate).abs().max().item(),
+            "ms": time_ms(lambda: ssd_scan(*args, chunk=chunk)),
+            "plain_ms": time_ms(lambda: ref.ssd_scan_ref(*args, chunk=chunk),
+                                10),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def check_expert_gemm(gen) -> dict:
+    # (E, C, d, f): one qwen2-moe decode step's gate/up and down products
+    # (dropless C = the 8 requests), the routing prefix's capacity (21 of
+    # 256 tokens) and a long prefill's (16 groups of 85)
+    cases = [(60, 8, 2048, 1408), (60, 8, 1408, 2048), (60, 21, 2048, 1408),
+             (60, 1360, 2048, 1408)]
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for e, c, d, f in cases:
+            # outputs about N(0, 1/4): below 4, where TOL holds in bf16
+            xe = randn(gen, e, c, d, dtype=torch.float32).mul_(
+                0.5 * d ** -0.5).to(dtype)
+            w = randn(gen, e, d, f, dtype=dtype)
+            out = expert_gemm(xe, w)
+            torch.cuda.synchronize()
+            plain = ref.expert_gemm_ref(xe, w)
+            err = (out.float() - plain.float()).abs().max().item()
+            row = {"shape": [e, c, d, f], "dtype": str(dtype),
+                   "max_abs_err": err, "tol": TOL[dtype]}
+            if dtype == torch.bfloat16:
+                row.update(gemm_timings(xe, w, out, plain))
+            rows.append(row)
+            print(f"[expert_gemm] {row}")
+            assert err <= TOL[dtype], row
+    main = {k: v for k, v in rows[0].items() if k != "tol"}
+    return {"name": "expert_gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+            "replaces": "src/repro/kernels/moe_gmm.py:38",
+            "launches": None, **main, "library_call": "torch.bmm",
+            "cases": rows}
+
+
+def gemm_timings(xe, w, out, plain) -> dict:
+    e, c, d = xe.shape
+    bound_ms, bound_by = bound(nbytes(xe, w, out), 2.0 * e * c * d *
+                               w.shape[-1], xe.dtype)
+    return {"ms": time_ms(lambda: expert_gemm(xe, w)),
+            "plain_ms": time_ms(lambda: ref.expert_gemm_ref(xe, w), 10),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(lambda: torch.bmm(xe, w))}
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: serving at full width
 # ---------------------------------------------------------------------------
 class CheckedEngine(PathServingEngine):
     """The one-shot engine, keeping a device-side flag of whether every
-    decode step's logits were finite (read once, after generate)."""
+    decode step's logits were finite (read once, after generate), and
+    counting its decode steps and routing-feature calls."""
 
     def _decode(self, params, tok, cache, idx):
         logits, cache = super()._decode(params, tok, cache, idx)
         self.finite = self.finite & torch.isfinite(logits).all()
+        self.decodes += 1
         return logits, cache
+
+    def _feats(self, tokens):
+        self.feature_calls += 1
+        return super()._feats(tokens)
 
 
 KERNELS = (flash_attention, flash_decode, flash_attention_lse,
-           flash_attention_dkv, flash_attention_dq, router_assign)
+           flash_attention_dkv, flash_attention_dq, router_assign, ssd_scan,
+           expert_gemm)
 
 
 def reset_counts():
@@ -481,9 +652,36 @@ def counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-def serve(cfg) -> dict:
+def expected_launches(cfg, feature_calls: int, decodes: int) -> dict:
+    """What the serving path launches: per routing-feature call (the
+    cache-free forward) flash attention once per attention block, the
+    SSD scan once per Mamba block and the expert GEMM once per product of
+    each MoE block; per decode step flash decode once per attention block
+    and the expert GEMM likewise."""
+    blocks = [spec for spec in cfg.pattern] * cfg.pattern_repeats
+    attn = sum(b.mixer == "attn" for b in blocks)
+    mamba = sum(b.mixer == "mamba" for b in blocks)
+    moe = sum(b.mlp == "moe" for b in blocks)
+    gemms = 3 if cfg.mlp_type in ("swiglu", "geglu") else 2
+    return {"flash_attention": attn * feature_calls,
+            "flash_decode": attn * decodes,
+            "ssd_scan": mamba * feature_calls,
+            "expert_gemm": gemms * moe * (feature_calls + decodes)}
+
+
+def serve(cfg, num_paths: int = NUM_PATHS,
+          profile_prompt: int = PROMPT_LEN) -> dict:
+    """The serving path at full width: random paths from seeds, a router
+    over path 0's prefix features, generate plain and re-routed; checks
+    tokens, finiteness and every kernel's launch count, then profiles a
+    generate of ``profile_prompt``-token prompts."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_init = time.perf_counter()
     paths = [api.init_model(cfg, seed=p, device="cuda")
-             for p in range(NUM_PATHS)]
+             for p in range(num_paths)]
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_init
     corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
                              seq_len=PROMPT_LEN, seed=0)
     # router from generated weights over the first path's prefix features
@@ -491,19 +689,22 @@ def serve(cfg) -> dict:
                                                                    seed=1))
     gen = torch.Generator(device="cuda").manual_seed(1234)
     router = DiscriminativeRouter(
-        w=torch.randn((cfg.d_model, NUM_PATHS), generator=gen,
+        w=torch.randn((cfg.d_model, num_paths), generator=gen,
                       device="cuda"),
-        b=torch.zeros(NUM_PATHS, device="cuda"), mu=feats.mean(0),
+        b=torch.zeros(num_paths, device="cuda"), mu=feats.mean(0),
         sigma=torch.clamp_min(feats.std(0), 1e-6))
     prompts = corpus.sample_documents(REQUESTS, seed=2)
     eng = CheckedEngine(cfg, paths, options=EngineOptions(
         router=router, cache_len=CACHE_LEN))
     eng.finite = torch.ones((), dtype=torch.bool, device="cuda")
-    eng.generate(prompts, max_new=2)          # warm-up: cuBLAS handles etc.
+    eng.decodes = eng.feature_calls = 0
+    # warm-up (cuBLAS handles, the kernels' first launches) on short prompts
+    eng.generate(prompts[:, :8], max_new=2)
     torch.cuda.synchronize()
-    runs = {}
+    runs = {"paths_init_s": t_init}
     for name, every in (("plain", 0), ("reroute", REROUTE_EVERY)):
         reset_counts()
+        eng.decodes = eng.feature_calls = 0
         t0 = time.perf_counter()
         res = eng.generate(prompts, max_new=MAX_NEW, reroute_every=every)
         torch.cuda.synchronize()
@@ -512,23 +713,41 @@ def serve(cfg) -> dict:
         new = res.tokens[:, PROMPT_LEN:]
         assert res.tokens.shape == (REQUESTS, PROMPT_LEN + MAX_NEW)
         assert ((new >= 0) & (new < cfg.vocab_size)).all(), new
-        assert launched["flash_attention"] > 0, launched
-        assert launched["flash_decode"] > 0, launched
+        want = expected_launches(cfg, eng.feature_calls, eng.decodes)
+        got = {k: launched[k] for k in want}
+        assert got == want, (name, got, want)
+        assert all(launched[k] > 0 for k, v in want.items() if v), launched
         runs[name] = {"paths": res.paths.tolist(), "switches": res.switches,
                       "tokens_per_s": REQUESTS * MAX_NEW / dt,
-                      "seconds": dt, "launches": launched}
-        print(f"[serve] {name}: routed paths {res.paths.tolist()}, "
-              f"switches {res.switches}, "
+                      "seconds": dt, "decode_steps": eng.decodes,
+                      "feature_calls": eng.feature_calls,
+                      "launches": launched}
+        print(f"[serve {cfg.name}] {name}: routed paths "
+              f"{res.paths.tolist()}, switches {res.switches}, "
               f"{REQUESTS * MAX_NEW / dt:.1f} tok/s ({dt:.3f} s), "
-              f"launches {launched}")
+              f"{eng.decodes} decode steps, {eng.feature_calls} feature "
+              f"calls, launches {launched}")
     assert bool(eng.finite), "non-finite logits during generate"
-    runs["device_busy_share"] = device_busy_share(eng, prompts)
+    runs["device_busy_share"] = device_busy_share(
+        eng, prompts[:, :profile_prompt])
+    runs["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[serve {cfg.name}] {num_paths} paths made in {t_init:.1f} s; "
+          f"peak memory {runs['peak_memory_gib']:.2f} GiB")
+    del eng, paths, feats, router
+    free_memory()
     return runs
 
 
+def free_memory():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def device_busy_share(eng, prompts) -> dict:
-    """Device kernel time over wall time for one short generate, from
-    torch.profiler; None where the profiler saw no device time."""
+    """Device kernel time over wall time for one short generate (the 8
+    requests, 4 new tokens), from torch.profiler; None where the profiler
+    saw no device time."""
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -547,38 +766,100 @@ def device_busy_share(eng, prompts) -> dict:
     return out
 
 
-def prefill_decode_parity(cfg, dtype: str, tol: float) -> float:
-    """prefill + decode steps through the kernels vs the same calls
-    through the plain attention (attn_impl="full"), same weights."""
+class ForcedExperts:
+    """Teacher forcing of the MoE router for a kernels-vs-plain check.
+    While active, every router call of the kernels' run (``run =
+    "kernels"``) records its top-k experts; the plain run (``run =
+    "plain"``, the same calls in the same order) takes the kernels' run's
+    experts in place of its own, with gates from its own router
+    probabilities, so a near-tie that the two runs break differently
+    changes no token's mixture.  Each run's own choices are kept, and
+    ``flips()`` counts, call by call, the token choices whose expert set
+    differs."""
+
+    def __init__(self):
+        self.own = {"kernels": [], "plain": []}
+        self.run = None
+        self._topk = moe_layer._router_topk
+
+    def __enter__(self):
+        def forced(p, m, x):
+            gates, idx, aux = self._topk(p, m, x)
+            own = self.own[self.run]
+            own.append(idx)
+            if self.run == "plain":
+                idx = self.own["kernels"][len(own) - 1]
+                logits = x.float() @ p["router"].to(x.dtype).float()
+                g = torch.softmax(logits, dim=-1).gather(-1, idx)
+                gates = (g / torch.clamp_min(g.sum(-1, keepdim=True), 1e-9)
+                         ).to(x.dtype)
+            return gates, idx, aux
+        moe_layer._router_topk = forced
+        return self
+
+    def __exit__(self, *exc):
+        moe_layer._router_topk = self._topk
+
+    def flips(self) -> list:
+        """-> token choices whose expert set differs, call by call."""
+        k, p = self.own["kernels"], self.own["plain"]
+        assert len(k) == len(p)
+        return [int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(k, p)]
+
+
+def prefill_decode_parity(cfg, dtype: str, tol: float, *,
+                          prompt_len: int = PROMPT_LEN - MAX_NEW,
+                          batch: int = REQUESTS, depth=None) -> dict:
+    """prefill + MAX_NEW decode steps through the kernels vs the same
+    calls through the plain path (attn_impl="full": plain attention,
+    ``ref.ssd_scan_ref``, einsum experts), same weights, the MoE router
+    teacher-forced; ``depth`` cuts the number of blocks, widths stay."""
     cfg_k = cfg.replace(dtype=dtype)
+    if depth is not None:
+        cfg_k = cfg_k.replace(num_layers=depth)
     cfg_p = cfg_k.replace(attn_impl="full")
     params = api.init_model(cfg_k, seed=7, device="cuda")
     corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
-                             seq_len=PROMPT_LEN, seed=3)
-    toks = torch.as_tensor(corpus.sample_documents(REQUESTS),
-                           device="cuda")
-    s = PROMPT_LEN - MAX_NEW
+                             seq_len=prompt_len + MAX_NEW, seed=3)
+    toks = torch.as_tensor(corpus.sample_documents(batch), device="cuda")
+    s, cache_len = prompt_len, prompt_len + MAX_NEW
     worst = 0.0
-    with torch.inference_mode():
+    with torch.inference_mode(), ForcedExperts() as choices:
+        choices.run = "kernels"
         lg_k, cache_k = api.prefill(params, cfg_k, {"tokens": toks[:, :s]},
-                                    CACHE_LEN)
+                                    cache_len)
+        choices.run = "plain"
         lg_p, cache_p = api.prefill(params, cfg_p, {"tokens": toks[:, :s]},
-                                    CACHE_LEN)
+                                    cache_len)
         for t in range(MAX_NEW):
             assert torch.isfinite(lg_k).all()
             worst = max(worst, (lg_k.float() - lg_p.float()).abs().max()
                         .item())
             tok = toks[:, s + t:s + t + 1]
-            ci = torch.full((REQUESTS,), s + t, dtype=torch.int32,
+            ci = torch.full((batch,), s + t, dtype=torch.int32,
                             device="cuda")
+            choices.run = "kernels"
             lg_k, cache_k = api.serve_step(params, cfg_k, {"tokens": tok},
                                            cache_k, ci)
+            choices.run = "plain"
             lg_p, cache_p = api.serve_step(params, cfg_p, {"tokens": tok},
                                            cache_p, ci)
-    print(f"[prefill+decode] {dtype}: kernels vs plain max |dlogit| "
-          f"{worst:.3e} (tol {tol})")
-    assert worst <= tol, (dtype, worst, tol)
-    return worst
+        worst = max(worst, (lg_k.float() - lg_p.float()).abs().max().item())
+    flips = choices.flips()
+    moe_blocks = len(flips) // (1 + MAX_NEW)      # the prefill's calls
+    out = {"max_abs_dlogit": worst, "blocks": cfg_k.num_layers, "tol": tol,
+           "prompt": [batch, s],
+           "max_abs_logit": lg_p.float().abs().max().item(),
+           "expert_flips_unforced": sum(flips),
+           "expert_choices": sum(a.shape[0] for a in choices.own["kernels"]),
+           "prefill_flips_by_block": flips[:moe_blocks]}
+    print(f"[prefill+decode {cfg.name}] {dtype}: kernels vs plain max "
+          f"|dlogit| {worst:.3e} (tol {tol:.3g}), {out}")
+    assert worst <= tol, (cfg.name, dtype, out)
+    del params, cache_k, cache_p
+    free_memory()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -738,10 +1019,17 @@ def main() -> int:
                 print(f"[ptxas {name}] {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    phase_s = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     kernels = [check_flash_attention(gen), check_flash_decode(gen),
                *training_attention_timings(gen, TRAIN_BATCH, DOC_LEN, 16,
                                            64),
-               check_router_assign(gen)]
+               check_router_assign(gen), check_ssd_scan(gen),
+               check_expert_gemm(gen)]
+    phase_s["kernels"] = time.perf_counter() - t0
+    print(json.dumps({"phase2_kernels": kernels}), flush=True)
+    print(f"[phase] kernels: {phase_s['kernels']:.1f} s", flush=True)
+    t0 = time.perf_counter()
 
     cfg = get_config("dipaco-150m").replace(attn_impl="pallas",
                                             dtype="bfloat16")
@@ -750,20 +1038,51 @@ def main() -> int:
     # of each block's attention output, carried through 12 blocks
     parity = {"float32": prefill_decode_parity(cfg, "float32", 1e-3),
               "bfloat16": prefill_decode_parity(cfg, "bfloat16", 0.25)}
+    phase_s["serve dipaco-150m"] = time.perf_counter() - t0
+    print(f"[phase] serve dipaco-150m: {phase_s['serve dipaco-150m']:.1f} s", flush=True)
+    t0 = time.perf_counter()
 
     trained = train(cfg.replace(route_prefix_len=32))
     grads = {dt: train_grad_parity(cfg, dt) for dt in ("float32", "bfloat16")}
+    free_memory()
+    phase_s["train dipaco-150m"] = time.perf_counter() - t0
+    print(f"[phase] train dipaco-150m: {phase_s['train dipaco-150m']:.1f} s", flush=True)
+
+    families = {}
+    for name, num_paths, tols, prompt_len, batch, f32_depth in FAMILIES:
+        t0 = time.perf_counter()
+        fcfg = get_config(name).replace(attn_impl="pallas", dtype="bfloat16")
+        fam = {"serve": serve(fcfg, num_paths, PROFILE_PROMPT)}
+        fam["parity"] = {dt: prefill_decode_parity(
+            fcfg, dt, tol, prompt_len=prompt_len, batch=batch,
+            depth=f32_depth if dt == "float32" else None)
+            for dt, tol in tols.items()}
+        families[name] = fam
+        phase_s[f"serve {name}"] = time.perf_counter() - t0
+        print(f"[phase] serve {name}: {phase_s[f'serve {name}']:.1f} s")
+
+    mamba, moe = (families[n]["serve"] for n in ("mamba2-1.3b",
+                                                  "qwen2-moe-a2.7b"))
     for k in kernels:
         if k["name"] in ("flash_attention", "flash_decode"):
             k["launches"] = runs["plain"]["launches"][k["name"]]
             k["launches_reroute"] = runs["reroute"]["launches"][k["name"]]
+            k["launches_qwen2_moe"] = moe["plain"]["launches"][k["name"]]
+        elif k["name"] == "ssd_scan":
+            k["launches"] = mamba["plain"]["launches"]["ssd_scan"]
+            k["launches_reroute"] = mamba["reroute"]["launches"]["ssd_scan"]
+        elif k["name"] == "expert_gemm":
+            k["launches"] = moe["plain"]["launches"]["expert_gemm"]
+            k["launches_reroute"] = moe["reroute"]["launches"]["expert_gemm"]
         else:
             k["launches"] = trained["launches"][k["name"]]
     kernels[0]["launches_train"] = trained["launches"]["flash_attention"]
+    print(f"[phase] seconds: {phase_s}")
 
     summary = {"kernels": kernels}
-    print(json.dumps({"serve": runs, "prefill_decode_max_dlogit": parity,
-                      "train": trained, "train_grad_parity": grads}))
+    print(json.dumps({"serve": runs, "prefill_decode_parity": parity,
+                      "train": trained, "train_grad_parity": grads,
+                      "families": families, "phase_seconds": phase_s}))
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

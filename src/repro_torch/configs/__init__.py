@@ -9,13 +9,13 @@ from __future__ import annotations
 
 import importlib
 
-ALL_CONFIGS = ["dipaco-150m"]
+ALL_CONFIGS = ["dipaco-150m", "mamba2-1.3b", "qwen2-moe-a2.7b"]
 
 # declared by the reference package but not yet by the port
 _NOT_PORTED = [
     "qwen3-moe-235b-a22b", "gemma-2b", "whisper-base", "jamba-v0.1-52b",
-    "mamba2-1.3b", "pixtral-12b", "qwen3-8b", "qwen2-moe-a2.7b",
-    "moonshot-v1-16b-a3b", "nemotron-4-340b", "dipaco-dense-1b",
+    "pixtral-12b", "qwen3-8b", "moonshot-v1-16b-a3b", "nemotron-4-340b",
+    "dipaco-dense-1b",
 ]
 
 

@@ -2,8 +2,9 @@
 
 A CPU tensor goes to the plain version in ``ref.py``.  A CUDA tensor
 goes to the hand-written kernel, which launches or raises: nothing falls
-back.  The model calls the attention entries when ``cfg.attn_impl ==
-'pallas'``; k-means calls ``router_assign``.
+back.  The model calls the attention entries, ``ssd_scan`` and
+``expert_gemm`` when ``cfg.attn_impl == 'pallas'``; k-means calls
+``router_assign``.
 """
 from __future__ import annotations
 
@@ -90,3 +91,36 @@ def router_assign(z, centroids):
         return ref.router_assign_ref(z, centroids)
     from .router_assign import router_assign as kernel
     return kernel(z.contiguous(), centroids.contiguous())
+
+
+def _no_backward(name: str, *ts) -> None:
+    if _needs_grad(*ts):
+        raise NotImplementedError(
+            f"{name} has no backward kernel yet: a CUDA input that requires "
+            f"a gradient would get an output without one (use the plain "
+            f"path, attn_impl != 'pallas', to differentiate)")
+
+
+def ssd_scan(x, dt, a, bmat, cmat, *, chunk: int):
+    """Mamba2 SSD chunked scan.  x (B,S,H,P), dt (B,S,H), a (H,),
+    bmat/cmat (B,S,G,N) with H % G == 0 and S % chunk == 0 -> (y
+    (B,S,H,P) in x's dtype, final state (B,H,P,N) f32).  Forward only:
+    a CUDA input that requires a gradient raises."""
+    if _device_type(x) == "cpu":
+        return ref.ssd_scan_ref(x, dt, a, bmat, cmat, chunk=chunk)
+    _no_backward("ssd_scan", x, dt, a, bmat, cmat)
+    from .ssd_scan import ssd_scan as kernel
+    return kernel(x.contiguous(), dt.float().contiguous(),
+                  a.float().contiguous(), bmat.contiguous(),
+                  cmat.contiguous(), chunk=chunk)
+
+
+def expert_gemm(xe, w):
+    """Per-expert batched GEMM: xe (E, C, d) @ w (E, d, f) -> (E, C, f) in
+    xe's dtype, f32 accumulation.  Forward only: a CUDA input that
+    requires a gradient raises."""
+    if _device_type(xe) == "cpu":
+        return ref.expert_gemm_ref(xe, w)
+    _no_backward("expert_gemm", xe, w)
+    from .moe_gmm import expert_gemm as kernel
+    return kernel(xe.contiguous(), w.contiguous())

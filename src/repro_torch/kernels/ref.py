@@ -119,3 +119,60 @@ def flash_decode_ref(q, k_cache, v_cache, cache_index, *, window=None,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p, vf)
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def _segsum(x):
+    """x: (..., T) -> (..., T, T) cumulative segment sums, -inf above diag."""
+    T = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
+    return seg.masked_fill(~mask, -math.inf)
+
+
+def ssd_scan_ref(x, dt, a, bmat, cmat, *, chunk: int):
+    """Plain version of the SSD scan kernel, and the Mamba2 mixer's plain
+    path: the port of the reference's chunked SSD (``ssd_chunked``), a
+    linear-time inter-chunk scan plus the quadratic intra-chunk part.
+    x (B,S,H,P), dt (B,S,H), a (H,) negative, bmat/cmat (B,S,G,N)
+    grouped -> (y (B,S,H,P) in x's dtype, final state (B,H,P,N) f32)."""
+    b, s, h, pdim = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    nc = s // chunk
+    rep = h // g
+    xc = x.reshape(b, nc, chunk, h, pdim).float()
+    dtc = dt.reshape(b, nc, chunk, h).float()
+    Bc = bmat.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3).float()
+    Cc = cmat.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3).float()
+    dA = (dtc * a.float()).movedim(-1, 2)               # (b,nc,h,l) log-decay
+    dA_cum = torch.cumsum(dA, dim=-1)                   # (b,nc,h,l)
+    # intra-chunk (quadratic within chunk)
+    L = torch.exp(_segsum(dA))                          # (b,nc,h,l,l)
+    xdt = xc * dtc[..., None]                           # dt-weighted inputs
+    scores = torch.einsum("bclhn,bcshn->bchls", Cc, Bc)
+    y_diag = torch.einsum("bchls,bcshp->bclhp", scores * L, xdt)
+    # per-chunk end states
+    decay_end = torch.exp(dA_cum[..., -1:] - dA_cum)    # (b,nc,h,l)
+    states = torch.einsum("bclhn,bclhp->bchpn",
+                          Bc * decay_end.movedim(2, 3)[..., None], xdt)
+    # inter-chunk linear scan
+    chunk_decay = torch.exp(dA_cum[..., -1])            # (b,nc,h)
+    state = torch.zeros((b, h, pdim, n), device=x.device)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(state)                            # state at chunk start
+        state = chunk_decay[:, c, :, None, None] * state + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                 # (b,nc,h,p,n)
+    decay_in = torch.exp(dA_cum).movedim(2, 3)          # (b,nc,l,h)
+    y_off = torch.einsum("bclhn,bchpn->bclhp", Cc, h_prev) \
+        * decay_in[..., None]
+    y = (y_diag + y_off).reshape(b, s, h, pdim)
+    return y.to(x.dtype), state
+
+
+def expert_gemm_ref(xe, w):
+    """Plain version of the expert GEMM kernel: (E,C,d) @ (E,d,f) in f32,
+    cast back to xe's dtype."""
+    return torch.einsum("ecd,edf->ecf", xe.float(), w.float()).to(xe.dtype)

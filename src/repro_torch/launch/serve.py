@@ -4,8 +4,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dipaco-150m \
         --paths 4 --requests 8 --max-new 16 [--reroute-every 8]
 
-    # the same on the CPU (plain attention, no kernels)
+    # the same on the CPU (plain versions, no kernels); --arch also takes
+    # mamba2-1.3b and qwen2-moe-a2.7b (their smoke configs)
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch mamba2-1.3b
 
 Only ``--engine oneshot`` is ported so far.
 """
@@ -23,7 +26,9 @@ from repro_torch.serving import EngineOptions, PathServingEngine
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dipaco-150m")
+    ap.add_argument("--arch", default="dipaco-150m",
+                    help="a config the port declares (smoke size): "
+                         "dipaco-150m, mamba2-1.3b, qwen2-moe-a2.7b")
     ap.add_argument("--engine", choices=["oneshot"], default="oneshot")
     ap.add_argument("--paths", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)

@@ -24,7 +24,7 @@ NEG_INF = -1e30
 
 
 def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=gen.device) * scale
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(scale)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
-"""Stacked-block decoder language model (dense attention blocks).
+"""Stacked-block decoder language model: dense, token-MoE, Mamba2 and
+hybrid blocks.
 
 The port of ``repro/models/lm.py``.  Parameters of each pattern
 position are stacked across repeats under ``blocks/pos{i}`` with the
 layer axis first, as in the reference; a Python loop walks the stack
-where the reference uses ``lax.scan``.  Decode caches are stacked the
-same way and written in place.  MoE and Mamba blocks are not ported yet.
+where the reference uses ``lax.scan``.  Decode caches (KV for attention,
+conv and SSM state for Mamba) are stacked the same way and written in
+place.  The VLM patch stub is not ported yet.
 """
 from __future__ import annotations
 
@@ -16,92 +18,134 @@ from .config import ModelConfig
 from .layers import (_cache_positions, apply_attention, apply_mlp,
                      embed_tokens, init_attention, init_embedding, init_mlp,
                      init_rmsnorm, rms_norm, torch_dtype, unembed)
+from .moe_layer import apply_moe, init_moe
 from .params import cast_tree, tree_map
-
-
-def _check_block(spec) -> None:
-    if spec.mixer != "attn" or spec.mlp not in ("dense", "none"):
-        raise NotImplementedError(
-            f"block {spec} is not ported to repro_torch yet: only dense "
-            f"attention blocks (ROADMAP queue 1, item 4: other families)")
+from .ssm import apply_mamba, init_mamba, init_ssm_state
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 def _init_block(gen: torch.Generator, cfg: ModelConfig, spec):
-    _check_block(spec)
-    p = {"norm1": init_rmsnorm(gen, cfg.d_model),
-         "mixer": init_attention(gen, cfg)}
+    p = {"norm1": init_rmsnorm(gen, cfg.d_model)}
+    if spec.mixer == "attn":
+        p["mixer"] = init_attention(gen, cfg)
+    elif spec.mixer == "mamba":
+        p["mixer"] = init_mamba(gen, cfg)
+    else:
+        raise ValueError(spec.mixer)
     if spec.mlp != "none":
         p["norm2"] = init_rmsnorm(gen, cfg.d_model)
-        p["mlp"] = init_mlp(gen, cfg)
+        if spec.mlp == "dense":
+            p["mlp"] = init_mlp(gen, cfg)
+        elif spec.mlp == "moe":
+            p["mlp"] = init_moe(gen, cfg)
+        else:
+            raise ValueError(spec.mlp)
     return p
 
 
-def _stack(trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _init_stacked(gen: torch.Generator, cfg: ModelConfig, spec, dtype):
+    """One pattern position's leaves for all repeats, drawn layer by layer
+    (f32) and cast into a stack preallocated in ``dtype``: the f32 copy
+    of the whole stack never exists."""
+    reps = cfg.pattern_repeats
+    stacked = None
+    for r in range(reps):
+        layer = _init_block(gen, cfg, spec)
+        if stacked is None:
+            stacked = tree_map(lambda a: torch.empty(
+                (reps, *a.shape), device=a.device,
+                dtype=dtype if a.is_floating_point() else a.dtype), layer)
+        tree_map(lambda dst, src, r=r: dst[r].copy_(src), stacked, layer)
+        del layer
+    return stacked
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig):
     """Parameters on ``gen.device``, with the reference tree's keys,
-    shapes and dtypes (random values from ``gen``, not ``jax.random``)."""
+    shapes and dtypes (random values from ``gen``, not ``jax.random``).
+    Each leaf is cast to ``cfg.dtype`` as it is drawn."""
     if cfg.vision is not None:
         raise NotImplementedError("the VLM patch stub is not ported yet")
-    reps = cfg.pattern_repeats
-    params = {"embed": init_embedding(gen, cfg)}
-    params["blocks"] = {
-        f"pos{i}": _stack([_init_block(gen, cfg, spec) for _ in range(reps)])
-        for i, spec in enumerate(cfg.pattern)}
-    params["final_norm"] = init_rmsnorm(gen, cfg.d_model)
-    return cast_tree(params, torch_dtype(cfg.dtype))
+    dtype = torch_dtype(cfg.dtype)
+    params = {"embed": cast_tree(init_embedding(gen, cfg), dtype)}
+    params["blocks"] = {f"pos{i}": _init_stacked(gen, cfg, spec, dtype)
+                        for i, spec in enumerate(cfg.pattern)}
+    params["final_norm"] = init_rmsnorm(gen, cfg.d_model).to(dtype)
+    return params
 
 
 # ---------------------------------------------------------------------------
 # Apply
 # ---------------------------------------------------------------------------
+def _write_state_(cache, new_state) -> None:
+    """Overwrite a Mamba layer's cache views in place."""
+    for k, v in new_state.items():
+        cache[k].copy_(v)
+
+
 def _apply_block(bp, cfg: ModelConfig, spec, x, *, positions, window,
-                 cache=None, cache_index=None):
-    _check_block(spec)
+                 cache=None, cache_index=None, is_prefill=False):
+    """-> (x, aux): aux is the MoE load-balance loss, None without one."""
     h = rms_norm(bp["norm1"], x, cfg.norm_eps)
-    y, _ = apply_attention(bp["mixer"], cfg, h, positions=positions,
-                           causal=True, window=window, cache=cache,
-                           cache_index=cache_index)
+    if spec.mixer == "attn":
+        y, _ = apply_attention(bp["mixer"], cfg, h, positions=positions,
+                               causal=True, window=window, cache=cache,
+                               cache_index=cache_index)
+    elif cache is None:
+        y, _ = apply_mamba(bp["mixer"], cfg, h)
+    else:
+        # decode continues from the cached state; prefill scans the full
+        # sequence from a zero state and overwrites the incoming (stale)
+        # slot state, matching the attention branch's write-from-
+        # position-0 semantics
+        y, new_state = apply_mamba(bp["mixer"], cfg, h,
+                                   state=None if is_prefill else cache,
+                                   return_state=is_prefill)
+        _write_state_(cache, new_state)
     x = x + y
+    aux = None
     if spec.mlp != "none":
         h = rms_norm(bp["norm2"], x, cfg.norm_eps)
-        x = x + apply_mlp(bp["mlp"], cfg, h)
-    return x
+        if spec.mlp == "moe":
+            y, aux = apply_moe(bp["mlp"], cfg, h)
+        else:
+            y = apply_mlp(bp["mlp"], cfg, h)
+        x = x + y
+    return x, aux
 
 
 def _scan_blocks(params, cfg: ModelConfig, x, *, positions, window,
-                 caches=None, cache_index=None):
+                 caches=None, cache_index=None, is_prefill=False):
     """Walk the repeating pattern group over ``pattern_repeats``; each
-    layer's cache is a view into the stacked cache, written in place."""
+    layer's cache is a view into the stacked cache, written in place.
+    -> (x, aux summed over the MoE blocks, f32)."""
+    aux = torch.zeros((), device=x.device)
     for r in range(cfg.pattern_repeats):
         for i, spec in enumerate(cfg.pattern):
             bp = tree_map(lambda a, r=r: a[r], params["blocks"][f"pos{i}"])
             c = None if caches is None else \
                 {k: a[r] for k, a in caches[f"pos{i}"].items()}
-            x = _apply_block(bp, cfg, spec, x, positions=positions,
-                             window=window, cache=c, cache_index=cache_index)
-    return x
+            x, a = _apply_block(bp, cfg, spec, x, positions=positions,
+                                window=window, cache=c,
+                                cache_index=cache_index,
+                                is_prefill=is_prefill)
+            if a is not None:
+                aux = aux + a
+    return x, aux
 
 
 def apply_lm(params, cfg: ModelConfig, tokens, *, window=None,
              return_hidden=False):
     """Training / scoring forward.  tokens: (B, S) -> (logits (B, S, V),
-    aux) — aux is 0 for dense blocks."""
+    aux) — aux is the summed MoE load-balance loss (0 without MoE)."""
     b, s = tokens.shape
     x = embed_tokens(params["embed"], cfg, tokens)
     positions = torch.arange(s, device=x.device)[None, :]
     window = window if window is not None else cfg.sliding_window
-    x = _scan_blocks(params, cfg, x, positions=positions, window=window)
+    x, aux = _scan_blocks(params, cfg, x, positions=positions, window=window)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    aux = torch.zeros((), device=x.device)
     if return_hidden:
         return x, aux
     return unembed(params["embed"], cfg, x), aux
@@ -112,15 +156,18 @@ def apply_lm(params, cfg: ModelConfig, tokens, *, window=None,
 # ---------------------------------------------------------------------------
 def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
                       dtype=None, *, device="cuda"):
-    """Stacked caches matching the parameter layout (layer axis first)."""
+    """Stacked caches matching the parameter layout (layer axis first):
+    KV for attention, conv (cache dtype) and SSM (f32) state for Mamba."""
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
     reps = cfg.pattern_repeats
     shape = (reps, batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
     caches = {}
     for i, spec in enumerate(cfg.pattern):
-        _check_block(spec)
-        if cfg.kv_quant:
+        if spec.mixer == "mamba":
+            c = {k: v[None].repeat(reps, *([1] * v.ndim)) for k, v in
+                 init_ssm_state(cfg, batch, dtype, device=dev).items()}
+        elif cfg.kv_quant:
             c = {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
                  "v": torch.zeros(shape, dtype=torch.int8, device=dev),
                  "k_scale": torch.zeros(shape[:-1], device=dev),
@@ -143,8 +190,8 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, cache_index, *,
     x = embed_tokens(params["embed"], cfg, tokens)
     ci = _cache_positions(cache_index, tokens.shape[0], x.device)
     window = window if window is not None else cfg.sliding_window
-    x = _scan_blocks(params, cfg, x, positions=ci[:, None], window=window,
-                     caches=caches, cache_index=ci)
+    x, _ = _scan_blocks(params, cfg, x, positions=ci[:, None],
+                        window=window, caches=caches, cache_index=ci)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], cfg, x), caches
 
@@ -153,8 +200,9 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
             window=None):
     """Single-pass prompt ingestion: forward ``tokens`` once, writing the
     KV decode caches at positions 0..S-1 (the dense masked branch, as in
-    the reference).  Returns (logits (B,S,V), caches) ready for
-    ``decode_step`` at ``cache_index = S``."""
+    the reference) and each Mamba layer's state after the last token
+    (the full-sequence scan from a zero state).  Returns (logits
+    (B,S,V), caches) ready for ``decode_step`` at ``cache_index = S``."""
     b, s = tokens.shape
     if s > cache_len:
         raise ValueError(f"prompt length {s} exceeds cache_len {cache_len}")
@@ -162,8 +210,8 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
     x = embed_tokens(params["embed"], cfg, tokens)
     positions = torch.arange(s, device=x.device)[None, :]
     window = window if window is not None else cfg.sliding_window
-    x = _scan_blocks(params, cfg, x, positions=positions, window=window,
-                     caches=caches, cache_index=0)
+    x, _ = _scan_blocks(params, cfg, x, positions=positions, window=window,
+                        caches=caches, cache_index=0, is_prefill=True)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], cfg, x), caches
 

@@ -27,6 +27,16 @@ KV_HEADS = "kv_heads"
 HEAD_DIM = "head_dim"
 MLP = "mlp"
 VOCAB = "vocab"
+EXPERT = "expert"
+EXPERT_MLP = "expert_mlp"
+SSM_INNER = "ssm_inner"
+SSM_STATE = "ssm_state"
+CONV = "conv"
+
+_MAMBA_AXES = {
+    "in_proj": (EMBED, SSM_INNER), "conv_w": (CONV, SSM_INNER),
+    "conv_b": (SSM_INNER,), "dt_bias": (HEADS,), "A_log": (HEADS,),
+    "D": (HEADS,), "norm": (SSM_INNER,), "out_proj": (SSM_INNER, EMBED)}
 
 
 def tree_map(fn, tree, *rest):
@@ -58,7 +68,8 @@ def tree_map_with_axes(fn, params: ParamTree, axes: AxisTree):
 def param_axes(cfg) -> AxisTree:
     """The logical axes of every leaf of ``init_model(cfg)``, as the
     reference's ``init_model`` returns them: layer leaves carry
-    ``LAYERS`` first.  Dense attention blocks only, like the port."""
+    ``LAYERS`` first.  Attention and Mamba mixers, dense and MoE MLPs
+    (with the MoE's ``shared`` MLP), as the reference's ``init_*``."""
     attn = {"wq": (EMBED, HEADS, HEAD_DIM), "wk": (EMBED, KV_HEADS, HEAD_DIM),
             "wv": (EMBED, KV_HEADS, HEAD_DIM), "wo": (HEADS, HEAD_DIM, EMBED)}
     if cfg.qk_norm:
@@ -69,15 +80,22 @@ def param_axes(cfg) -> AxisTree:
                "w_down": (MLP, EMBED)}
     else:
         mlp = {"w_up": (EMBED, MLP), "w_down": (MLP, EMBED)}
+    moe = None
+    if cfg.moe is not None:
+        moe = {"router": (EMBED, EXPERT),
+               "w_gate": (EXPERT, EMBED, EXPERT_MLP),
+               "w_up": (EXPERT, EMBED, EXPERT_MLP),
+               "w_down": (EXPERT, EXPERT_MLP, EMBED)}
+        if cfg.moe.num_shared > 0:
+            moe["shared"] = mlp
+    mixers = {"attn": attn, "mamba": _MAMBA_AXES}
+    mlps = {"dense": mlp, "moe": moe}
     blocks = {}
     for i, spec in enumerate(cfg.pattern):
-        if spec.mixer != "attn" or spec.mlp not in ("dense", "none"):
-            raise NotImplementedError(
-                f"block {spec} is not ported to repro_torch yet")
-        block = {"norm1": (EMBED,), "mixer": attn}
+        block = {"norm1": (EMBED,), "mixer": mixers[spec.mixer]}
         if spec.mlp != "none":
             block["norm2"] = (EMBED,)
-            block["mlp"] = mlp
+            block["mlp"] = mlps[spec.mlp]
         blocks[f"pos{i}"] = tree_map(lambda ax: (LAYERS, *ax), block)
     embed = {"embedding": (VOCAB, EMBED)}
     if not cfg.tie_embeddings:

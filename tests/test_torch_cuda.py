@@ -27,6 +27,7 @@ DECODE_CASES = [
     (2, 4, 2, 32, 32, [12, 45], 8),
     (2, 4, 2, 32, 40, [7, 90], 12),
     (3, 16, 2, 128, 300, [0, 299, 1000], 100),
+    (8, 16, 16, 128, 80, [79] * 8, None),      # a qwen2-moe decode step
 ]
 # (B, S, H, KH, D, window): MHA, GQA, MQA, windows, ragged S
 ATTN_CASES = [
@@ -36,6 +37,7 @@ ATTN_CASES = [
     (2, 64, 4, 2, 32, 16),
     (2, 50, 4, 2, 32, None),
     (1, 77, 4, 4, 128, 24),
+    (8, 32, 16, 16, 128, None),                # qwen2-moe's routing prefix
 ]
 
 
@@ -241,3 +243,135 @@ def test_pallas_loss_backward_reaches_attention_weights(cuda):
         b = grads["full"][name].grad
         assert a is not None and float(a.float().abs().max()) > 0, name
         assert _rel_err(a, b) <= 3e-2, (name, _rel_err(a, b))
+
+
+# ---------------------------------------------------------------------------
+# The SSD scan and the expert GEMM (the SSM and token-MoE families)
+# ---------------------------------------------------------------------------
+def _ssd_inputs(seed, b, s, h, p, g, n):
+    """x / 4, dt = softplus(z - 2), A = -(1..H) as the model's A_log
+    gives it, and grouped B, C scaled so that C . B is about 1: outputs
+    stay below 4, where one bf16 rounding is within TOL."""
+    x, z, bm, cm = _randn(seed, (b, s, h, p), (b, s, h), (b, s, g, n),
+                          (b, s, g, n))
+    dt = torch.nn.functional.softplus(z - 2.0)
+    a = -torch.arange(1, h + 1, dtype=torch.float32)
+    return x / 4, dt, a, bm * n ** -0.25, cm * n ** -0.25
+
+
+# (B, S, H, P, G, N, chunk): several chunks, groups, the routing
+# prefix, a 6-token prompt (chunk 6), a ragged last tile (chunk 100),
+# the full width at a short length
+SSD_CASES = [
+    (2, 128, 4, 32, 1, 32, 64),
+    (2, 96, 6, 64, 3, 64, 32),
+    (8, 32, 8, 64, 1, 128, 32),
+    (2, 6, 4, 64, 1, 128, 6),
+    (2, 200, 4, 64, 2, 128, 100),
+    (1, 512, 64, 64, 1, 128, 256),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain(cuda, dtype, b, s, h, p, g, n,
+                                       chunk):
+    """y and the final state against the plain chunked SSD on the same
+    inputs (both f32 inside; bf16 y differs by one output rounding)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    x, dt, a, bm, cm = _ssd_inputs(9, b, s, h, p, g, n)
+    x, bm, cm = (t.to(cuda, dtype) for t in (x, bm, cm))
+    dt, a = dt.to(cuda), a.to(cuda)
+    before = ssd_scan.launches
+    y, state = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    py, pstate = ref.ssd_scan_ref(x, dt, a, bm, cm, chunk=chunk)
+    assert y.dtype == dtype and y.shape == x.shape
+    assert state.dtype == torch.float32 and state.shape == (b, h, p, n)
+    assert float(py.float().abs().max()) < 4
+    torch.testing.assert_close(y.float(), py.float(), atol=TOL[dtype],
+                               rtol=0)
+    torch.testing.assert_close(state, pstate, atol=1e-4, rtol=0)
+
+
+# (E, C, d, f): a decode step's sizes (dropless C = batch), the routing
+# prefix's capacity, ragged C, d and f, f not a multiple of 8 (the
+# element-wise weight loads), and the full-width gate/up product
+GEMM_CASES = [
+    (4, 8, 64, 48), (3, 21, 64, 40), (2, 100, 96, 72), (2, 33, 50, 30),
+    (60, 8, 2048, 1408),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", GEMM_CASES)
+def test_expert_gemm_kernel_matches_plain(cuda, dtype, e, c, d, f):
+    """Against the f32 einsum on the same inputs, scaled so that outputs
+    are about 1."""
+    from repro_torch.kernels.moe_gmm import expert_gemm
+    xe, w = _randn(10, (e, c, d), (e, d, f))
+    xe, w = (xe * d ** -0.5).to(cuda, dtype), w.to(cuda, dtype)
+    before = expert_gemm.launches
+    out = expert_gemm(xe, w)
+    torch.cuda.synchronize()
+    assert expert_gemm.launches == before + 1
+    plain = ref.expert_gemm_ref(xe, w)
+    assert out.dtype == dtype and out.shape == (e, c, f)
+    torch.testing.assert_close(out.float(), plain.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_ssd_and_gemm_ops_raise_on_inputs_that_require_grad(cuda):
+    """Neither kernel has a backward: a CUDA input that requires a
+    gradient raises instead of giving an output without a grad_fn."""
+    from repro_torch.kernels import ops
+    x, dt, a, bm, cm = (t.to(cuda) for t in
+                        _ssd_inputs(11, 1, 8, 2, 32, 1, 32))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.ssd_scan(x.requires_grad_(True), dt, a, bm, cm, chunk=8)
+    w = torch.zeros(2, 32, 16, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.expert_gemm(torch.zeros(2, 4, 32, device=cuda), w)
+    with torch.no_grad():
+        y, _ = ops.ssd_scan(x, dt, a, bm, cm, chunk=8)
+        assert ops.expert_gemm(torch.zeros(2, 4, 32, device=cuda),
+                               w).shape == (2, 4, 16)
+    assert y.shape == x.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "qwen2-moe-a2.7b"])
+def test_new_families_go_through_their_kernels(cuda, arch):
+    """The wiring at smoke size: the pallas forward launches ssd_scan
+    once per Mamba block and expert_gemm three times per MoE block, and
+    prefill + decode through the kernels match the plain path (f32:
+    summation order only)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.moe_gmm import expert_gemm
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import api
+    cfg = get_smoke_config(arch).replace(attn_impl="pallas")
+    plain = cfg.replace(attn_impl="full")
+    params = api.init_model(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 70), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    counts = ssd_scan.launches, expert_gemm.launches
+    with torch.inference_mode():
+        api.forward_logits(params, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        mamba = arch.startswith("mamba")
+        assert (ssd_scan.launches - counts[0],
+                expert_gemm.launches - counts[1]) == (
+            (cfg.num_layers, 0) if mamba else (0, 3 * cfg.num_layers))
+        lk, ck = api.prefill(params, cfg, {"tokens": toks[:, :60]}, 72)
+        lp, cp = api.prefill(params, plain, {"tokens": toks[:, :60]}, 72)
+        torch.testing.assert_close(lk, lp, atol=1e-4, rtol=0)
+        for t in range(60, 70):
+            tok = toks[:, t:t + 1]
+            lk, ck = api.serve_step(params, cfg, {"tokens": tok}, ck, t)
+            lp, cp = api.serve_step(params, plain, {"tokens": tok}, cp, t)
+            torch.testing.assert_close(lk, lp, atol=1e-4, rtol=0)

@@ -196,8 +196,26 @@ def test_multi_token_ring_wrap_raises():
 
 
 def test_moe_and_mamba_blocks_not_ported():
-    from repro_torch.models.config import BlockSpec
+    """MoE and Mamba blocks are ported now (their parity tests are in
+    test_torch_moe_ssm*.py); what stays unported are the encoder-decoder
+    and the VLM patch stub, and both still raise."""
+    from repro_torch.models.config import (BlockSpec, EncoderConfig,
+                                           VisionStubConfig)
+    from repro_torch.configs import get_smoke_config
     _, tcfg = _pair()
     for spec in (BlockSpec("mamba", "dense"), BlockSpec("attn", "moe")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tapi.init_model(tcfg.replace(pattern=(spec,)), device="cpu")
+        base = get_smoke_config("mamba2-1.3b" if spec.mixer == "mamba"
+                                else "qwen2-moe-a2.7b")
+        params = tapi.init_model(base.replace(pattern=(spec,), d_ff=64),
+                                 device="cpu")
+        assert set(params["blocks"]["pos0"]) == {"norm1", "mixer", "norm2",
+                                                 "mlp"}
+    enc = tcfg.replace(encoder=EncoderConfig(1, 2, 8, 4))
+    for call in (lambda: tapi.init_model(enc, device="cpu"),
+                 lambda: tapi.init_serve_cache(enc, 1, 8, device="cpu"),
+                 lambda: tapi.forward_logits({}, enc, {"tokens": None})):
+        with pytest.raises(NotImplementedError, match="encoder-decoders"):
+            call()
+    with pytest.raises(NotImplementedError, match="VLM patch stub"):
+        tapi.init_model(tcfg.replace(vision=VisionStubConfig(4, 16)),
+                        device="cpu")
