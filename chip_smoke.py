@@ -8,14 +8,18 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 
 1. Card and build: prints the card's name and power limit, builds every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-   source, in parallel) and prints the build time.
+   source, in parallel) and prints the build time and ptxas's report
+   (registers, shared memory, spills).  The machine code of the two
+   sources with a tensor-core bf16 path (``moe_gmm``, ``flash_attention``)
+   must hold wgmma (HGMMA) and TMA loads (UTMALDG).
 2. Kernels against their plain PyTorch versions on the card, in bf16 and
    f32, at the main paths' shapes and at others: flash attention and
    flash decode (serving), the forward that writes the LSE rows, the
    dK/dV and dQ backward kernels and the k-means assignment (training),
    the SSD scan (Mamba2, with its final state) and the expert GEMM
    (token MoE).  Times each kernel, its plain version and one PyTorch
-   call as a yardstick where one computes the same function.
+   call as a yardstick where one computes the same function.  Ragged
+   bf16 shapes reach each edge of the tensor-core tilings.
 3. Serving at full width: ``dipaco-150m`` (12 blocks, d 896, vocab
    32000) in bf16 with ``attn_impl="pallas"``, 4 random paths and a
    discriminative router; ``PathServingEngine.generate`` serves 8 corpus
@@ -160,6 +164,20 @@ def randn(gen, *shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
+def tensor_core_sass() -> None:
+    """The bf16 paths of these sources run on wgmma fed by TMA: their
+    machine code must hold both instructions (HGMMA, UTMALDG)."""
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    for name in ("moe_gmm", "flash_attention"):
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build.lib_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        found = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        print(f"[sass {name}] {found}")
+        assert all(found.values()), (name, found)
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -177,11 +195,15 @@ def attention_pairs(s: int, causal: bool, window) -> int:
 def check_flash_attention(gen) -> dict:
     # (B, S, H, KH, D, window): the routing features' shape in
     # dipaco-150m and in qwen2-moe-a2.7b, a long sequence, a ragged S with
-    # a window under GQA, and the other head dims
+    # a window under GQA, and the other head dims; then the edges of the
+    # bf16 tensor-core tiling: S 1, S 65 (a second tile of one key), D 32
+    # (64-byte swizzle) and D 128 (two column boxes) under windows and GQA
     cases = [(8, 32, 16, 16, 64, None), (8, 32, 16, 16, 128, None),
              (2, 2048, 16, 16, 64, None),
              (2, 1000, 16, 4, 64, 256), (1, 333, 8, 8, 128, None),
-             (2, 77, 4, 2, 32, 16)]
+             (2, 77, 4, 2, 32, 16), (2, 1, 4, 2, 64, None),
+             (2, 65, 4, 2, 64, None), (1, 65, 8, 2, 32, 16),
+             (2, 333, 8, 2, 128, 100)]
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for b, s, h, kh, d, w in cases:
@@ -219,10 +241,16 @@ def fa_timings(gen, b, s, h, d) -> dict:
     bound_ms, bound_by = bound(nbytes(q, k, v, q),
                                4 * d * h * b * attention_pairs(s, True, None),
                                dtype)
+    # the device's time alone, without the host's launch cost: the same
+    # call replayed from a CUDA graph
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        flash_attention(q, k, v)
     return {
         "shape": [b, s, h, h, d], "dtype": "bf16",
         "max_abs_err": err, "max_err": err,
         "ms": time_ms(lambda: flash_attention(q, k, v)),
+        "graph_ms": time_ms(graph.replay),
         "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v)),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -346,11 +374,14 @@ def training_attention(q, k, v, do, causal, window) -> tuple:
 def check_training_attention(gen) -> list:
     # (B, S, H, KH, D, causal, window): the five backward cases of
     # tests/test_kernels.py (ragged S = 80, a non-causal GQA window), the
-    # other head dims, and the training shape
+    # other head dims, the training shape, and two edges of the bf16
+    # tensor-core tiling (S 65 at D 128 under a window, and at D 32 with
+    # GQA, not causal)
     cases = [(2, 128, 4, 2, 32, True, None), (2, 96, 2, 1, 64, True, 24),
              (2, 64, 4, 4, 32, False, None), (2, 80, 2, 2, 32, True, None),
              (2, 64, 4, 2, 32, False, 16), (2, 200, 4, 4, 128, True, None),
-             (1, 333, 8, 2, 64, True, 100), (8, 1024, 16, 16, 64, True, None)]
+             (1, 333, 8, 2, 64, True, 100), (8, 1024, 16, 16, 64, True, None),
+             (2, 65, 4, 2, 128, True, 7), (2, 65, 8, 2, 32, False, None)]
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for b, s, h, kh, d, causal, w in cases:
@@ -580,9 +611,18 @@ def ssd_timings(gen, b, s, chunk) -> dict:
 def check_expert_gemm(gen) -> dict:
     # (E, C, d, f): one qwen2-moe decode step's gate/up and down products
     # (dropless C = the 8 requests), the routing prefix's capacity (21 of
-    # 256 tokens) and a long prefill's (16 groups of 85)
-    cases = [(60, 8, 2048, 1408), (60, 8, 1408, 2048), (60, 21, 2048, 1408),
+    # 256 tokens) and a long prefill's (16 groups of 85), each timed in
+    # bf16; then the edges of the bf16 tensor-core tiling: C 13 and 1
+    # (N 16 and 8), C 300 and 200 (three tiles of 128, one of 256, on two
+    # warpgroups), d and f not multiples of 64, f not a multiple of 8 (no
+    # TMA: the CUDA-core kernel), and C 30, 40, 60, 90, 150 (N 32, 48, 64,
+    # 96, 192), so that bf16 reaches every wgmma width
+    timed = [(60, 8, 2048, 1408), (60, 8, 1408, 2048), (60, 21, 2048, 1408),
              (60, 1360, 2048, 1408)]
+    cases = timed + [(3, 13, 200, 72), (2, 1, 136, 64), (2, 300, 200, 136),
+                     (2, 200, 136, 264), (3, 13, 200, 70), (2, 30, 136, 72),
+                     (2, 40, 200, 136), (2, 60, 136, 200), (2, 90, 200, 72),
+                     (2, 150, 136, 136)]
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for e, c, d, f in cases:
@@ -596,7 +636,7 @@ def check_expert_gemm(gen) -> dict:
             err = (out.float() - plain.float()).abs().max().item()
             row = {"shape": [e, c, d, f], "dtype": str(dtype),
                    "max_abs_err": err, "tol": TOL[dtype]}
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and (e, c, d, f) in timed:
                 row.update(gemm_timings(xe, w, out, plain))
             rows.append(row)
             print(f"[expert_gemm] {row}")
@@ -744,24 +784,44 @@ def free_memory():
     torch.cuda.empty_cache()
 
 
-def device_busy_share(eng, prompts) -> dict:
-    """Device kernel time over wall time for one short generate (the 8
-    requests, 4 new tokens), from torch.profiler; None where the profiler
-    saw no device time."""
+def profiled(fn, top: int, key_averages: bool = False) -> dict:
+    """Device kernel time over wall time for one call of fn, from
+    torch.profiler (CPU and CUDA activity); None where the profiler saw no
+    device time.  The device events are summed by name from the raw trace:
+    ``key_averages`` builds the host-side call tree first, which took
+    80-120 s a serving window at these sizes.  With ``key_averages`` the
+    window's device time is also summed from ``key_averages()`` (the self
+    time of its CUDA events), to hold the two yardsticks side by side."""
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(prompts, max_new=4)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in events)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    t0 = time.perf_counter()
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns()
+    device_us = sum(by_name.values()) / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     out = {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
            "busy_share": device_us / wall_us if device_us else None,
-           "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                              for e in top}}
+           "top_kernels_ms": {k[:60]: ns / 1e6 for k, ns in ranked},
+           "processing_s": time.perf_counter() - t0}
+    if key_averages:
+        t0 = time.perf_counter()
+        out["device_ms_key_averages"] = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        out["key_averages_s"] = time.perf_counter() - t0
+    return out
+
+
+def device_busy_share(eng, prompts) -> dict:
+    """Device kernel time over wall time for one short generate (the 8
+    requests, 4 new tokens)."""
+    out = profiled(lambda: eng.generate(prompts, max_new=4), 6)
     print(f"[profile] {out}")
     return out
 
@@ -815,6 +875,7 @@ def prefill_decode_parity(cfg, dtype: str, tol: float, *,
     calls through the plain path (attn_impl="full": plain attention,
     ``ref.ssd_scan_ref``, einsum experts), same weights, the MoE router
     teacher-forced; ``depth`` cuts the number of blocks, widths stay."""
+    t_start = time.perf_counter()
     cfg_k = cfg.replace(dtype=dtype)
     if depth is not None:
         cfg_k = cfg_k.replace(num_layers=depth)
@@ -853,7 +914,8 @@ def prefill_decode_parity(cfg, dtype: str, tol: float, *,
            "max_abs_logit": lg_p.float().abs().max().item(),
            "expert_flips_unforced": sum(flips),
            "expert_choices": sum(a.shape[0] for a in choices.own["kernels"]),
-           "prefill_flips_by_block": flips[:moe_blocks]}
+           "prefill_flips_by_block": flips[:moe_blocks],
+           "seconds": time.perf_counter() - t_start}
     print(f"[prefill+decode {cfg.name}] {dtype}: kernels vs plain max "
           f"|dlogit| {worst:.3e} (tol {tol:.3g}), {out}")
     assert worst <= tol, (cfg.name, dtype, out)
@@ -947,24 +1009,13 @@ def train(cfg) -> dict:
 
 def train_busy_share(tr) -> dict:
     """Device kernel time over wall time for one inner step of all
-    workers, from torch.profiler (after the counted run)."""
+    workers (after the counted run), read both from the raw trace and from
+    ``key_averages``."""
     batches = torch.as_tensor(np.stack(
         [ld.tokens[:TRAIN_BATCH] for ld in tr.loaders]), device="cuda")
-    act = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr._step_fn(tr.worker_params, tr.opt_state, {"tokens": batches},
-                    tr.lr(tr.step).cuda())
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in events)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    out = {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
-           "busy_share": device_us / wall_us if device_us else None,
-           "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                              for e in top}}
+    out = profiled(lambda: tr._step_fn(
+        tr.worker_params, tr.opt_state, {"tokens": batches},
+        tr.lr(tr.step).cuda()), 8, key_averages=True)
     print(f"[train profile] {out}")
     return out
 
@@ -1017,6 +1068,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
+    tensor_core_sass()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_s = {"build": time.perf_counter() - t0}

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc`` into ``build/kernels/<name>-<hash>.so`` at the root of the
-checkout; the hash covers the source and the flags, so an edited source
-builds anew and an unchanged one loads at once.  ``build()`` starts one
+checkout; the hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source builds anew and an
+unchanged one loads at once.  ``build()`` starts one
 ``nvcc`` per source, all together, and waits for them.  Nothing is built
 when the module is imported.
 """
@@ -39,6 +40,8 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -74,6 +77,31 @@ def build(names=SOURCES) -> dict:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports
+
+
+# what csrc/hopper.cuh returns when a TMA tensor map cannot be encoded:
+# this alone when libcuda lacks cuTensorMapEncodeTiled, else plus the
+# CUresult it returned
+ERR_TENSOR_MAP = 10000
+# what it returns for a bf16 input whose base address is not 16-byte
+# aligned, which TMA cannot load
+ERR_MISALIGNED = 9000
+
+
+def check_rc(rc: int, name: str) -> None:
+    """Raise unless a kernel's C entry point returned 0."""
+    if rc == ERR_MISALIGNED:
+        raise RuntimeError(f"{name}: a bf16 input's base address is not "
+                           f"16-byte aligned, which TMA needs (pass a "
+                           f"copy, not a view that starts inside a row)")
+    if rc == ERR_TENSOR_MAP:
+        raise RuntimeError(f"{name}: TMA tensor-map encode failed "
+                           f"(no cuTensorMapEncodeTiled in libcuda)")
+    if rc > ERR_TENSOR_MAP:
+        raise RuntimeError(f"{name}: TMA tensor-map encode failed "
+                           f"(CUresult {rc - ERR_TENSOR_MAP})")
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
 def load(name: str) -> ctypes.CDLL:

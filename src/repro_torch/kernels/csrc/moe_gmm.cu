@@ -9,22 +9,52 @@
 // What bounds it on the H100.  2 E C d f operations on E (C d + d f) + E C f
 // elements.  At the MoE layer's decode step (E60 C8 d2048 f1408, bf16) the
 // expert weights are 346 MB and the operations 2.8 GFLOP: bound by bytes
-// (0.10 ms), since the dense dispatch is dropless over every expert.  At a
-// long prefill (C 1360) it is bound by arithmetic.
+// (0.10 ms), since the dense dispatch is dropless over every expert.  The
+// routing prefix (C 21) is bound by the same bytes.  At a long prefill
+// (C 1360, 470 GFLOP) it is bound by the bf16 tensor-core rate (0.48 ms).
 //
-// What the design does about it.  The TPU grid walks d as a sequential
-// axis into a VMEM accumulator; here one block per (expert, C tile, f tile)
-// loops over d in steps of 32 and keeps its tile's sums in registers: 256
-// threads, each 4 (BM 64) or 1 (BM 16) rows by 4 columns of the 64-column
-// tile.  BM is 16 when C <= 32 (a decode step, the routing prefix), so a
-// block reads its weight slab once for few rows without idle threads; 64
-// otherwise.  The weight tile (32 x 64) is read with one 16-byte load a
-// thread when f is a multiple of 16 bytes, else element by element; the
-// ragged edges of C, d and f are masked.  CUDA cores in f32: tensor cores
-// (wgmma, TMA) come later.
+// What the design does about it (bf16: `gmm_wgmma_kernel`).
+//  * A and B are swapped so that f lies on wgmma's 64-row M and C on its
+//    N: D (f x C) = w[e]^T x[e]^T.  The weight tile (64 d rows of 64
+//    contiguous f) is an MN-major A (wgmma's transpose bit), the x tile
+//    (N rows of 64 contiguous d) a K-major B.  N, a multiple of 8 up to
+//    256, covers all of C when C <= 256 (8 at a decode step, 24 at C 21),
+//    so each weight byte is read once for all of C; above 256, C is cut
+//    into tiles of 128 or 256, whichever pads less (1360 -> 11 x 128),
+//    and the re-reads of a weight tile come from L2.
+//  * One producer warp issues TMA loads of the tiles into a ring of
+//    shared-memory stages, completing on mbarriers; the consumer
+//    warpgroups run wgmma on the stages that have arrived and free each
+//    stage once the next one's wgmma is in flight.  Up to N 96 (a decode
+//    step, the routing prefix) one consumer warpgroup and 4 stages:
+//    small blocks (37 KB at N 8), several per SM, keep the weight stream
+//    in flight.  From N 128 two warpgroups, each on its own 64 f rows,
+//    share each x tile in 3 stages (a 128 x N block; two per SM at
+//    N 128), which halves the shared-memory reads of x per operation.
+//  * 128-byte swizzle in both the TMA boxes and the wgmma descriptors.
+//    The tensor maps are 3-D (over E), so the ragged edges of C and d
+//    read zeros inside each expert; C and f are masked in the epilogue.
+//  * Epilogue: the (f, C) accumulator is staged through the drained ring
+//    and written as 16-byte stores along f rows of out, coalesced.
+//  * Grid (ceil(f / (64 WGS)), ceil(C/N), E): 1,320 blocks at a decode
+//    step on 132 SMs, so no split of d is needed.
+// TMA needs 16-byte strides and base addresses.  bf16 inputs with d or f
+// not a multiple of 8 (no expert width of the configurations; the card
+// test's case E2 C33 d50 f30) go to the CUDA-core kernel; for a base that
+// is not 16-byte aligned (a view that starts inside a row) the entry
+// point returns hopper::ERR_MISALIGNED, which the wrapper raises on.
+//
+// f32 keeps the CUDA-core kernel (`gmm_kernel`): wgmma takes f32 inputs
+// only as TF32, about 3 decimal digits, which would break the f32 bar of
+// 1e-4 against the plain version and the f32 token identity of the
+// reference.  It runs one block per (expert, C tile, f tile) and loops
+// over d in steps of 32 with its tile's sums in registers: 256 threads,
+// each 4 (BM 64) or 1 (BM 16) rows by 4 columns of a 64-column tile.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -160,10 +190,197 @@ int dispatch(const void* x, const void* w, void* out, int E, int C, int D,
   return launch<T, 64>(x, w, out, E, C, D, F, st);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+constexpr int WM = 64;               // f rows per consumer warpgroup
+constexpr int WK = 64;               // d per stage: one 128-byte row
+constexpr int A_BYTES = WM * WK * 2;  // one warpgroup's weight tile
+
+// WGS consumer warpgroups, each on its own 64 f rows of the same x tile,
+// and STAGES stages in the ring.
+template <int N, int WGS, int STAGES>
+struct GemmPlan {
+  static constexpr int THREADS = 128 * WGS + 32;   // + the producer warp
+  static constexpr int STAGE = WGS * A_BYTES + N * WK * 2;
+  static constexpr int OP = WM * WGS + 8;          // staged out row, padded
+  static constexpr size_t SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
+  static_assert(N * OP * 2 <= STAGES * STAGE, "the epilogue fits the ring");
+};
+
+template <int N, int WGS, int STAGES>
+__global__ void __launch_bounds__(GemmPlan<N, WGS, STAGES>::THREADS)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_w,
+                 __nv_bfloat16* __restrict__ out, int C, int D, int F) {
+  using P = GemmPlan<N, WGS, STAGES>;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled tiles start on 1024-byte boundaries
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * P::STAGE);
+  uint64_t* empty = full + STAGES;
+
+  const int e = blockIdx.z;
+  const int c0 = blockIdx.y * N, f0 = blockIdx.x * WM * WGS;
+  const int ktiles = (D + WK - 1) / WK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * WGS);   // one arrival per warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * WGS) {
+    // producer: one thread keeps up to STAGES tile sets in flight
+    if (lane == 0) {
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) hopper::mbar_wait(&empty[s], (kt / STAGES - 1) & 1);
+        uint8_t* a = smem + s * P::STAGE;
+        hopper::mbar_expect_tx(&full[s], P::STAGE);
+        for (int g = 0; g < WGS; ++g)
+          hopper::tma_load_3d(a + g * A_BYTES, &tm_w, &full[s], f0 + g * WM,
+                              kt * WK, e);
+        hopper::tma_load_3d(a + WGS * A_BYTES, &tm_x, &full[s], kt * WK, c0,
+                            e);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: f rows f0 + 64 wg .. + 63
+  const int wg = warp / 4;
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int s = kt % STAGES;
+    hopper::mbar_wait(&full[s], (kt / STAGES) & 1);
+    const uint8_t* a = smem + s * P::STAGE;
+    hopper::fence_regs<N / 2>(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WK / 16; ++kk) {
+      // A: MN-major, 16 d rows of 128 bytes per k16 step
+      const uint64_t da = hopper::make_desc(a + wg * A_BYTES + kk * 2048, 16,
+                                            1024, hopper::SW128);
+      // B: K-major, 32 bytes along the swizzled row per k16 step
+      const uint64_t db = hopper::make_desc(a + WGS * A_BYTES + kk * 32, 16,
+                                            1024, hopper::SW128);
+      hopper::WgmmaSS<N, 1, 0>::run(acc, da, db);
+    }
+    hopper::wgmma_commit();
+    if (kt > 0) {
+      // the previous stage's products are done: hand it back
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs<N / 2>(acc);
+      if (lane == 0) hopper::mbar_arrive(&empty[(kt - 1) % STAGES]);
+    }
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs<N / 2>(acc);
+
+  // Every stage has landed and been consumed: once all consumer
+  // warpgroups are done with the ring, it holds D (f x C) staged as out
+  // rows (C x f).
+  asm volatile("bar.sync 1, %0;\n" :: "n"(128 * WGS) : "memory");
+  __nv_bfloat16* ot = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int fr = wg * WM + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = j * 8 + (lane % 4) * 2;
+    ot[c * P::OP + fr] = __float2bfloat16(acc[4 * j]);
+    ot[(c + 1) * P::OP + fr] = __float2bfloat16(acc[4 * j + 1]);
+    ot[c * P::OP + fr + 8] = __float2bfloat16(acc[4 * j + 2]);
+    ot[(c + 1) * P::OP + fr + 8] = __float2bfloat16(acc[4 * j + 3]);
+  }
+  asm volatile("bar.sync 1, %0;\n" :: "n"(128 * WGS) : "memory");
+  // 16-byte stores along f; F % 8 == 0, so a group of 8 columns is all
+  // inside f or all past it
+  constexpr int G = WM * WGS / 8;      // 16-byte groups per out row
+  __nv_bfloat16* oe = out + (long)e * C * F;
+  for (int i = threadIdx.x; i < N * G; i += 128 * WGS) {
+    const int r = i / G, g = i % G;
+    const int c = c0 + r, f = f0 + g * 8;
+    if (c < C && f < F)
+      *reinterpret_cast<uint4*>(oe + (long)c * F + f) =
+          *reinterpret_cast<const uint4*>(ot + r * P::OP + g * 8);
+  }
+}
+
+template <int N, int WGS, int STAGES>
+int launch_wgmma(const void* x, const void* w, void* out, int E, int C,
+                 int D, int F, cudaStream_t st) {
+  using P = GemmPlan<N, WGS, STAGES>;
+  CUtensorMap tm_x, tm_w;
+  // x (E, C, D): box of N rows of C by 64 of d; w (E, D, F): 64 d rows by
+  // 64 of f
+  const cuuint64_t xd[3] = {(cuuint64_t)D, (cuuint64_t)C, (cuuint64_t)E};
+  const cuuint64_t xs[2] = {(cuuint64_t)D * 2, (cuuint64_t)C * D * 2};
+  const cuuint32_t xb[3] = {WK, N, 1};
+  const cuuint64_t wd[3] = {(cuuint64_t)F, (cuuint64_t)D, (cuuint64_t)E};
+  const cuuint64_t ws[2] = {(cuuint64_t)F * 2, (cuuint64_t)D * F * 2};
+  const cuuint32_t wb[3] = {WM, WK, 1};
+  int rc = hopper::encode_bf16(&tm_x, x, 3, xd, xs, xb,
+                               CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc == 0)
+    rc = hopper::encode_bf16(&tm_w, w, 3, wd, ws, wb,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
+  // once per instantiation (a thread-safe static)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gmm_wgmma_kernel<N, WGS, STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((F + WM * WGS - 1) / (WM * WGS), (C + N - 1) / N, E);
+  gmm_wgmma_kernel<N, WGS, STAGES><<<grid, P::THREADS, P::SMEM, st>>>(
+      tm_x, tm_w, static_cast<__nv_bfloat16*>(out), C, D, F);
+  return cudaGetLastError();
+}
+
+// The N of the wgmma tile for C columns: the smallest width that covers C
+// when C <= 256 (one weight stream per expert), else 128 or 256, whichever
+// pads C less.
+int pick_n(int C) {
+  constexpr int widths[] = {8, 16, 24, 32, 48, 64, 96, 128, 192, 256};
+  for (int n : widths)
+    if (C <= n) return n;
+  const int pad128 = (C + 127) / 128 * 128, pad256 = (C + 255) / 256 * 256;
+  return pad128 < pad256 ? 128 : 256;
+}
+
+// Up to N 96 (a decode step, the routing prefix) one consumer warpgroup
+// and 4 stages: small blocks, many in flight per SM for the weight
+// stream.  From N 128 two warpgroups share each x tile (a 128 x N block)
+// in 3 stages, two such blocks per SM at N 128.
+int dispatch_wgmma(const void* x, const void* w, void* out, int E, int C,
+                   int D, int F, cudaStream_t st) {
+  switch (pick_n(C)) {
+    case 8: return launch_wgmma<8, 1, 4>(x, w, out, E, C, D, F, st);
+    case 16: return launch_wgmma<16, 1, 4>(x, w, out, E, C, D, F, st);
+    case 24: return launch_wgmma<24, 1, 4>(x, w, out, E, C, D, F, st);
+    case 32: return launch_wgmma<32, 1, 4>(x, w, out, E, C, D, F, st);
+    case 48: return launch_wgmma<48, 1, 4>(x, w, out, E, C, D, F, st);
+    case 64: return launch_wgmma<64, 1, 4>(x, w, out, E, C, D, F, st);
+    case 96: return launch_wgmma<96, 1, 4>(x, w, out, E, C, D, F, st);
+    case 128: return launch_wgmma<128, 2, 3>(x, w, out, E, C, D, F, st);
+    case 192: return launch_wgmma<192, 2, 3>(x, w, out, E, C, D, F, st);
+    default: return launch_wgmma<256, 2, 3>(x, w, out, E, C, D, F, st);
+  }
+}
+
 }  // namespace
 
-// dtype of x, w and out: 0 = f32, 1 = bf16.  E, C <= 65535 * BM (grid),
-// E <= 65535.  Returns a cudaError_t (0 on success).
+// dtype of x, w and out: 0 = f32, 1 = bf16.  E <= 65535 and
+// ceil(C / 16) <= 65535 (grid).  Returns a cudaError_t (0 on success),
+// hopper::ERR_MISALIGNED for a bf16 input whose base is not 16-byte
+// aligned, or hopper::ERR_TENSOR_MAP + a CUresult when a TMA tensor map
+// cannot be encoded.
 extern "C" int expert_gemm(const void* x, const void* w, void* out, int E,
                            int C, int D, int F, int dtype, void* stream) {
   if (E < 1 || C < 1 || D < 1 || F < 1 || E > 65535 ||
@@ -171,6 +388,12 @@ extern "C" int expert_gemm(const void* x, const void* w, void* out, int E,
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(x, w, out, E, C, D, F, st);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(x, w, out, E, C, D, F, st);
-  return cudaErrorInvalidValue;
+  if (dtype != 1) return cudaErrorInvalidValue;
+  // rows of x or w that are not 16-byte strides: no TMA
+  if (D % 8 != 0 || F % 8 != 0)
+    return dispatch<__nv_bfloat16>(x, w, out, E, C, D, F, st);
+  if (!hopper::aligned16(x) || !hopper::aligned16(w) ||
+      !hopper::aligned16(out))
+    return hopper::ERR_MISALIGNED;
+  return dispatch_wgmma(x, w, out, E, C, D, F, st);
 }

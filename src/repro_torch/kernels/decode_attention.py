@@ -111,9 +111,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                 window or 0, splits, _Q_DTYPE[q.dtype],
                 _KV_DTYPE[k_cache.dtype],
                 torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_decode kernel launch failed: "
-                           f"cudaError {rc}")
+    build.check_rc(rc, "flash_decode")
     flash_decode.launches += 1
     return out
 

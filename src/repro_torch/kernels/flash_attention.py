@@ -69,9 +69,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 b, s, h, kh, d, int(causal), window or 0, DTYPES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {rc}")
+    build.check_rc(rc, "flash_attention")
     flash_attention.launches += 1
     return out
 

@@ -40,11 +40,6 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-
-
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: Optional[int] = None) -> tuple:
@@ -57,7 +52,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, s, h, kh, d, int(causal), window or 0,
         DTYPES[q.dtype], _stream(q))
-    _raise_on(rc, "flash_attention_lse")
+    build.check_rc(rc, "flash_attention_lse")
     flash_attention_lse.launches += 1
     return out, lse
 
@@ -91,7 +86,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, s, h, kh, d, int(causal), window or 0, DTYPES[q.dtype],
         _stream(q))
-    _raise_on(rc, "flash_attention_dkv")
+    build.check_rc(rc, "flash_attention_dkv")
     flash_attention_dkv.launches += 1
     return dk, dv
 
@@ -106,7 +101,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool = True,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, h, kh, d,
         int(causal), window or 0, DTYPES[q.dtype], _stream(q))
-    _raise_on(rc, "flash_attention_dq")
+    build.check_rc(rc, "flash_attention_dq")
     flash_attention_dq.launches += 1
     return dq
 

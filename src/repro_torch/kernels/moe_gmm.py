@@ -50,9 +50,7 @@ def expert_gemm(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     rc = _lib()(xe.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f,
                 DTYPES[xe.dtype],
                 torch.cuda.current_stream(xe.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"expert_gemm kernel launch failed: "
-                           f"cudaError {rc}")
+    build.check_rc(rc, "expert_gemm")
     expert_gemm.launches += 1
     return out
 

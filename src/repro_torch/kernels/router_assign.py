@@ -50,9 +50,7 @@ def router_assign(z: torch.Tensor, centroids: torch.Tensor) -> tuple:
     rc = _lib()(z.data_ptr(), centroids.data_ptr(), assign.data_ptr(),
                 mind2.data_ptr(), n, k, d, DTYPES[z.dtype],
                 torch.cuda.current_stream(z.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"router_assign kernel launch failed: "
-                           f"cudaError {rc}")
+    build.check_rc(rc, "router_assign")
     router_assign.launches += 1
     return assign, mind2
 

@@ -69,8 +69,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 cmat.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, h, g,
                 p, n, chunk, DTYPES[x.dtype],
                 torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {rc}")
+    build.check_rc(rc, "ssd_scan")
     ssd_scan.launches += 1
     return y, state
 

@@ -29,7 +29,10 @@ DECODE_CASES = [
     (3, 16, 2, 128, 300, [0, 299, 1000], 100),
     (8, 16, 16, 128, 80, [79] * 8, None),      # a qwen2-moe decode step
 ]
-# (B, S, H, KH, D, window): MHA, GQA, MQA, windows, ragged S
+# (B, S, H, KH, D, window): MHA, GQA, MQA, windows, ragged S, and the
+# edges of the bf16 tensor-core tiling: S 1 and 65 (a tail of one row, a
+# second tile of one key), S 333 over several key tiles, each D (the
+# 64-byte swizzle at 32, two column boxes at 128) under windows and GQA
 ATTN_CASES = [
     (2, 64, 4, 4, 32, None),
     (2, 64, 8, 2, 32, None),
@@ -38,6 +41,13 @@ ATTN_CASES = [
     (2, 50, 4, 2, 32, None),
     (1, 77, 4, 4, 128, 24),
     (8, 32, 16, 16, 128, None),                # qwen2-moe's routing prefix
+    (2, 1, 4, 2, 64, None),
+    (2, 65, 4, 2, 64, None),
+    (1, 65, 8, 2, 32, 16),
+    (2, 65, 4, 4, 128, 7),
+    (1, 333, 4, 1, 32, None),
+    (2, 333, 8, 2, 64, 100),
+    (1, 333, 8, 2, 128, 100),
 ]
 
 
@@ -65,17 +75,26 @@ def _quant(x):
 @pytest.mark.parametrize("b,s,h,kh,d,window", ATTN_CASES)
 def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h, kh, d,
                                               window):
+    """Both instantiations of the forward kernel: the serving one, and the
+    training one with its LSE rows."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_lse
     q, k, v = (x.to(cuda, dtype) for x in _randn(
         5, (b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
-    before = flash_attention.launches
+    before = flash_attention.launches, flash_attention_lse.launches
     out = flash_attention(q, k, v, causal=True, window=window)
+    o, lse = flash_attention_lse(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert (flash_attention.launches, flash_attention_lse.launches) == (
+        before[0] + 1, before[1] + 1)
     assert out.dtype == dtype and out.shape == q.shape
     plain = ref.flash_attention_ref(q, k, v, causal=True, window=window)
     torch.testing.assert_close(out.float(), plain.float(), atol=TOL[dtype],
                                rtol=0)
+    po, plse = ref.fwd_with_lse_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(o.float(), po.float(), atol=TOL[dtype],
+                               rtol=0)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -298,10 +317,20 @@ def test_ssd_scan_kernel_matches_plain(cuda, dtype, b, s, h, p, g, n,
 
 # (E, C, d, f): a decode step's sizes (dropless C = batch), the routing
 # prefix's capacity, ragged C, d and f, f not a multiple of 8 (the
-# element-wise weight loads), and the full-width gate/up product
+# element-wise weight loads), and the full-width gate/up product.  Then
+# the edges of the bf16 tensor-core tiling: C 1, 13, 300 and 200 (N 8, 16,
+# three tiles of 128 and one of 256, the last two on two warpgroups), d
+# and f not multiples of 64, and d or f not a multiple of 8 (no TMA: the
+# CUDA-core kernel)
 GEMM_CASES = [
     (4, 8, 64, 48), (3, 21, 64, 40), (2, 100, 96, 72), (2, 33, 50, 30),
     (60, 8, 2048, 1408),
+    (3, 13, 200, 72), (2, 1, 136, 64), (2, 21, 72, 200), (2, 300, 200, 136),
+    (3, 13, 200, 70), (2, 13, 60, 72), (2, 200, 136, 264),
+    # bf16 reaches every wgmma width: C 30, 40, 60, 90, 150 take N 32, 48,
+    # 64, 96 and 192 (the rest above take 8, 16, 24, 128 and 256)
+    (2, 30, 136, 72), (2, 40, 200, 136), (2, 60, 136, 200), (2, 90, 200, 72),
+    (2, 150, 136, 136),
 ]
 
 
@@ -322,6 +351,31 @@ def test_expert_gemm_kernel_matches_plain(cuda, dtype, e, c, d, f):
     assert out.dtype == dtype and out.shape == (e, c, f)
     torch.testing.assert_close(out.float(), plain.float(), atol=TOL[dtype],
                                rtol=0)
+
+
+@pytest.mark.cuda
+def test_bf16_tensor_core_kernels_raise_on_a_misaligned_base(cuda):
+    """TMA loads from 16-byte aligned addresses only, and the bf16 paths
+    have no other kernel: a contiguous view that starts 2 bytes into its
+    storage raises instead of running elsewhere."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_lse
+    from repro_torch.kernels.moe_gmm import expert_gemm
+    q = torch.zeros(1 + 2 * 65 * 4 * 64, device=cuda,
+                    dtype=torch.bfloat16)[1:].view(2, 65, 4, 64)
+    k = torch.zeros(2, 65, 2, 64, device=cuda, dtype=torch.bfloat16)
+    for fn in (flash_attention, flash_attention_lse):
+        before = fn.launches
+        with pytest.raises(RuntimeError, match="16-byte aligned"):
+            fn(q, k, k)
+        assert fn.launches == before
+    xe = torch.zeros(1 + 2 * 8 * 64, device=cuda,
+                     dtype=torch.bfloat16)[1:].view(2, 8, 64)
+    w = torch.zeros(2, 64, 48, device=cuda, dtype=torch.bfloat16)
+    before = expert_gemm.launches
+    with pytest.raises(RuntimeError, match="16-byte aligned"):
+        expert_gemm(xe, w)
+    assert expert_gemm.launches == before
 
 
 @pytest.mark.cuda
