@@ -238,18 +238,8 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
 // ---------------------------------------------------------------------------
 constexpr float LOG2E = 1.4426950408889634f;
 
-// One 64-row tile of a (.., D) bf16 operand in shared memory: NB boxes of
-// 64 rows by DB columns, each swizzled on its own.
 template <int D>
-struct Tile {
-  static constexpr int DB = D < 64 ? D : 64;    // box columns
-  static constexpr int NB = D / DB;             // boxes per row
-  static constexpr int ROW = DB * 2;            // bytes per box row
-  static constexpr int BOX = 64 * ROW;          // bytes per box
-  static constexpr int BYTES = NB * BOX;        // 64 * D * 2
-  static constexpr int SBO = 8 * ROW;           // between 8-row groups
-  static constexpr uint64_t SWZ = D == 32 ? hopper::SW64 : hopper::SW128;
-};
+using Tile = hopper::RowTile<D, BM>;
 
 template <int D>
 constexpr size_t wgmma_smem() {
@@ -265,8 +255,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 int S, int H, int KH, int causal, int window, float scale) {
   using T = Tile<D>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* qs = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = hopper::align1024(smem_raw);
   uint8_t* ks = qs + T::BYTES;          // two stages
   uint8_t* vs = ks + 2 * T::BYTES;      // two stages
   uint64_t* bar = reinterpret_cast<uint64_t*>(vs + 2 * T::BYTES);
@@ -337,12 +326,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     hopper::fence_regs<BN / 2>(acc_s);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int off = (kk / (T::DB / 16)) * T::BOX + (kk % (T::DB / 16)) * 32;
-      hopper::WgmmaSS<BN, 0, 0>::run(
-          acc_s, hopper::make_desc(qs + off, 16, T::SBO, T::SWZ),
-          hopper::make_desc(kst + off, 16, T::SBO, T::SWZ));
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::WgmmaSS<BN, 0, 0>::run(acc_s, T::kmajor(qs, kk),
+                                     T::kmajor(kst, kk));
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs<BN / 2>(acc_s);
@@ -391,12 +377,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
     // P as bf16 A fragments, one per k16 chunk of keys
     uint32_t pa[BN / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[kk][i] = hopper::pack_bf16(acc_s[8 * kk + 2 * i],
-                                      acc_s[8 * kk + 2 * i + 1]);
+    hopper::to_a_fragments<BN>(acc_s, pa);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       acc_o[4 * j] *= alpha[0];
@@ -405,15 +386,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       acc_o[4 * j + 3] *= alpha[1];
     }
 
-    // O += P V, V MN-major: a k16 step moves 16 key rows; LBO steps
-    // between the column boxes of D 128
+    // O += P V, V MN-major
     hopper::fence_regs<D / 2>(acc_o);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      hopper::WgmmaRS<D, 1>::run(
-          acc_o, pa[kk],
-          hopper::make_desc(vst + kk * 16 * T::ROW, T::BOX, T::SBO, T::SWZ));
+      hopper::WgmmaRS<D, 1>::run(acc_o, pa[kk], T::mnmajor(vst, kk));
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs<D / 2>(acc_o);
@@ -440,22 +418,10 @@ template <int D, bool LSE>
 int launch_wgmma(const void* q, const void* k, const void* v,
                  void* o, float* lse, int B, int S, int H, int KH,
                  int causal, int window, cudaStream_t stream) {
-  using T = Tile<D>;
   CUtensorMap tm_q, tm_k, tm_v;
-  const cuuint64_t qd[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
-                            (cuuint64_t)B};
-  const cuuint64_t qs[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                            (cuuint64_t)S * H * D * 2};
-  const cuuint64_t kd[4] = {(cuuint64_t)D, (cuuint64_t)KH, (cuuint64_t)S,
-                            (cuuint64_t)B};
-  const cuuint64_t kst[3] = {(cuuint64_t)D * 2, (cuuint64_t)KH * D * 2,
-                             (cuuint64_t)S * KH * D * 2};
-  const cuuint32_t box[4] = {T::DB, 1, 64, 1};
-  const CUtensorMapSwizzle swz =
-      D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
-  int rc = hopper::encode_bf16(&tm_q, q, 4, qd, qs, box, swz);
-  if (rc == 0) rc = hopper::encode_bf16(&tm_k, k, 4, kd, kst, box, swz);
-  if (rc == 0) rc = hopper::encode_bf16(&tm_v, v, 4, kd, kst, box, swz);
+  int rc = hopper::encode_bshd(&tm_q, q, B, S, H, D, BM);
+  if (rc == 0) rc = hopper::encode_bshd(&tm_k, k, B, S, KH, D, BN);
+  if (rc == 0) rc = hopper::encode_bshd(&tm_v, v, B, S, KH, D, BN);
   if (rc != 0) return rc;
   constexpr size_t smem = wgmma_smem<D>();
   // once per instantiation (a thread-safe static)

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the tensor-core kernels (sm_90a):
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
 // wgmma instructions themselves, and the host-side encoding of TMA tensor
-// maps.  Included by moe_gmm.cu and flash_attention.cu; no kernel here.
+// maps.  Included by moe_gmm.cu, flash_attention.cu and
+// flash_attention_bwd.cu; no kernel here.
 //
 // Tensor maps are encoded on the host with cuTensorMapEncodeTiled, a
 // libcuda function reached through cudaGetDriverEntryPoint, so the
@@ -126,10 +127,54 @@ __device__ __forceinline__ void fence_regs(float* d) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+// One ROWS-row tile of a (.., D) bf16 operand in shared memory, as the
+// attention kernels load it: NB boxes of ROWS rows by DB columns, each
+// swizzled on its own (128 bytes a row, or 64 at D 32).
+template <int D, int ROWS>
+struct RowTile {
+  static constexpr int DB = D < 64 ? D : 64;    // box columns
+  static constexpr int NB = D / DB;             // boxes per row
+  static constexpr int ROW = DB * 2;            // bytes per box row
+  static constexpr int BOX = ROWS * ROW;        // bytes per box
+  static constexpr int BYTES = NB * BOX;        // ROWS * D * 2
+  static constexpr int SBO = 8 * ROW;           // between 8-row groups
+  static constexpr uint64_t SWZ = D == 32 ? SW64 : SW128;
+  // K-major operand (D is the reduction): the k16 step kk of a row
+  static __device__ __forceinline__ uint64_t kmajor(const uint8_t* tile,
+                                                    int kk) {
+    return make_desc(tile + (kk / (DB / 16)) * BOX + (kk % (DB / 16)) * 32,
+                     16, SBO, SWZ);
+  }
+  // MN-major B (the rows are the reduction, D is N): the k16 step kk
+  // moves 16 rows; LBO steps between the column boxes of D 128
+  static __device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile,
+                                                     int kk) {
+    return make_desc(tile + kk * 16 * ROW, BOX, SBO, SWZ);
+  }
+};
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
+}
+
+// 64-row f32 accumulators of N columns (the layout at WgmmaSS below) ->
+// bf16 A fragments of WgmmaRS, one per k16 chunk of the columns
+template <int N>
+__device__ __forceinline__ void to_a_fragments(const float* acc,
+                                               uint32_t (*a)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(acc[8 * kk + 2 * i], acc[8 * kk + 2 * i + 1]);
+}
+
+// the first 1024-byte boundary at or after p: where a swizzled tile starts
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
 // D (64 x N, f32, in registers) += A (64 x 16) B (16 x N), both bf16 in
@@ -564,6 +609,22 @@ inline int encode_bf16(CUtensorMap* map, const void* base, int rank,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + static_cast<int>(r);
+}
+
+// The tensor map of a (B, S, NH, D) bf16 tensor, row-major and
+// contiguous, whose box is `rows` rows of one head: RowTile<D, rows>'s
+// layout (dims innermost first: D, NH, S, B).  Rows past S read zeros.
+inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S,
+                       int NH, int D, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)NH, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)NH * D * 2,
+                                 (cuuint64_t)S * NH * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)(D < 64 ? D : 64), 1,
+                             (cuuint32_t)rows, 1};
+  return encode_bf16(map, base, 4, dims, strides, box,
+                     D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace hopper

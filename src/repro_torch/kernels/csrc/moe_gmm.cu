@@ -215,9 +215,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                  __nv_bfloat16* __restrict__ out, int C, int D, int F) {
   using P = GemmPlan<N, WGS, STAGES>;
   extern __shared__ uint8_t smem_raw[];
-  // swizzled tiles start on 1024-byte boundaries
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* smem = hopper::align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * P::STAGE);
   uint64_t* empty = full + STAGES;
 

@@ -142,7 +142,7 @@ def apply_mamba(p, cfg: ModelConfig, u, *, state=None, return_state=False):
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32, *,
-                   device="cpu"):
+                   device):
     s = cfg.ssm
     d_inner, n_heads, conv_dim = ssm_dims(cfg)
     return {
