@@ -87,12 +87,15 @@ from repro_torch.launch.steps import value_and_grad  # noqa: E402
 from repro_torch.models import api, moe_layer  # noqa: E402
 from repro_torch.models.config import DiPaCoConfig  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
+from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.serving import EngineOptions, PathServingEngine  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth and
-# the rate for each input type (bf16 on the tensor cores, f32 outside them)
+# the rate for each input type (bf16 and TF32 on the tensor cores, f32
+# outside them)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
+                  "tf32": 495e12}
 # kernel vs plain version on the same inputs: both accumulate in f32, so
 # f32 differs only by summation order; a bf16 output may differ by one
 # bf16 rounding of values below 4 (2^-7 at most).  The SSD's f32 check is
@@ -152,6 +155,21 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn) -> float:
+    """The call replayed from a CUDA graph: the device's time without the
+    host's launch cost (captured on a side stream after one warm-up
+    call there)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -168,17 +186,23 @@ def randn(gen, *shape, dtype):
 
 
 def tensor_core_sass() -> None:
-    """The bf16 paths of these sources run on wgmma fed by TMA: their
-    machine code must hold both instructions (HGMMA, UTMALDG)."""
+    """The bf16 paths of the attention kernels and expert_gemm, and both
+    paths of router_assign, run on wgmma fed by TMA: their machine code
+    must hold both instructions (HGMMA, UTMALDG).  flash_decode stages
+    K and V by TMA (UTMALDG) or bulk copies (UBLKCP)."""
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
-    for name in ("moe_gmm", "flash_attention", "flash_attention_bwd"):
+    need = {name: (("HGMMA",), ("UTMALDG",)) for name in (
+        "moe_gmm", "flash_attention", "flash_attention_bwd", "router_assign")}
+    need["decode_attention"] = (("UTMALDG", "UBLKCP"),)
+    for name, groups in need.items():
         sass = subprocess.run([str(cuobjdump), "-sass",
                                str(build.lib_path(name))],
                               capture_output=True, text=True,
                               check=True).stdout
-        found = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        found = {op: sass.count(op) for group in groups for op in group}
         print(f"[sass {name}] {found}")
-        assert all(found.values()), (name, found)
+        assert all(any(found[op] for op in group) for group in groups), \
+            (name, found)
 
 
 # ---------------------------------------------------------------------------
@@ -244,16 +268,11 @@ def fa_timings(gen, b, s, h, d) -> dict:
     bound_ms, bound_by = bound(nbytes(q, k, v, q),
                                4 * d * h * b * attention_pairs(s, True, None),
                                dtype)
-    # the device's time alone, without the host's launch cost: the same
-    # call replayed from a CUDA graph
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        flash_attention(q, k, v)
     return {
         "shape": [b, s, h, h, d], "dtype": "bf16",
         "max_abs_err": err, "max_err": err,
         "ms": time_ms(lambda: flash_attention(q, k, v)),
-        "graph_ms": time_ms(graph.replay),
+        "graph_ms": graph_ms(lambda: flash_attention(q, k, v)),
         "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v)),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -291,7 +310,12 @@ def check_flash_decode(gen) -> dict:
                rng.integers(0, 3 * 2048, 64).tolist()),
               (8, 16, 4, 64, 512, 128, rng.integers(0, 2000, 8).tolist()),
               (3, 8, 1, 128, 100, None, [0, 99, 250]),
-              (2, 4, 2, 32, 40, 12, [7, 90])]
+              (2, 4, 2, 32, 40, 12, [7, 90]),
+              # one (b, kh) row over a long cache: several splits meet at
+              # the arrival counter (MHA; GQA, window, wrapped; MQA)
+              (1, 16, 16, 64, 2048, None, [2047]),
+              (1, 16, 2, 128, 2048, 700, [3000]),
+              (1, 4, 1, 32, 2048, None, [5000])]
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for int8 in (False, True):
@@ -330,6 +354,8 @@ def check_flash_decode(gen) -> dict:
 
 
 def fd_timings(gen, b, h, d, T, ci) -> dict:
+    """bf16: eager (the host's launch cost included) and replayed from a
+    CUDA graph, beside masked SDPA timed both ways."""
     dtype = torch.bfloat16
     q = randn(gen, b, h, d, dtype=dtype)
     kc, vc = (randn(gen, b, T, h, d, dtype=dtype) for _ in range(2))
@@ -341,14 +367,20 @@ def fd_timings(gen, b, h, d, T, ci) -> dict:
     pos = ref.ring_positions(cit, T)
     mask = ((pos >= 0) & (pos <= cit.long()[:, None]))[:, None, None, :]
     qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
-    return {
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    out = {
         "shape": [b, h, h, d, T], "dtype": "bf16",
         "max_abs_err": err, "max_err": err,
         "ms": time_ms(lambda: flash_decode(q, kc, vc, cit)),
+        "graph_ms": graph_ms(lambda: flash_decode(q, kc, vc, cit)),
         "plain_ms": time_ms(lambda: ref.flash_decode_ref(q, kc, vc, cit)),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask))}
+        "library_ms": time_ms(sdpa), "library_graph_ms": graph_ms(sdpa)}
+    out["bound_share_graph"] = bound_ms / out["graph_ms"]
+    return out
 
 
 def rel_err(a, b) -> float:
@@ -525,9 +557,14 @@ def assign_flips(z, c, a, pa, tol_rel: float = 1e-5) -> tuple:
 
 
 def check_router_assign(gen) -> dict:
-    # (N, D, K): ragged N, a large table (several centroid tiles), and
-    # the training phase's features (2048 documents, d_model, K = 4)
-    cases = [(513, 32, 8), (65536, 896, 256), (DOCS, 896, TRAIN_PATHS)]
+    # (N, D, K): ragged N, the paper's table (one centroid tile of 256),
+    # the training phase's features (2048 documents, d_model, K = 4),
+    # then the edges of the tensor-core
+    # tiling: K 1, K 257 (two tiles of 192), D 36 (f32 on TMA, bf16 on the
+    # CUDA cores), D 50 (the CUDA-core kernel in both types), N 131 K 33
+    cases = [(513, 32, 8), (65536, 896, 256), (DOCS, 896, TRAIN_PATHS),
+             (777, 896, 1), (1000, 128, 257), (333, 36, 24), (200, 50, 40),
+             (131, 64, 33)]
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for n, d, k in cases:
@@ -555,18 +592,25 @@ def check_router_assign(gen) -> dict:
 
 
 def ra_timings(gen, n, d, k) -> dict:
-    """f32, as k-means calls it."""
+    """f32, as k-means calls it.  The route's bound: three TF32 products
+    on the tensor cores (``bound_ms``, what the kernel is judged by);
+    beside it the f32 CUDA-core bound of the kernel it replaced."""
     z, c = randn(gen, n, d, dtype=torch.float32), \
         randn(gen, k, d, dtype=torch.float32)
     a, d2 = router_assign(z, c)
     pa, pd2 = ref.router_assign_ref(z, c)
-    bound_ms, bound_by = bound(nbytes(z, c, a, d2), 2.0 * n * k * d,
-                               torch.float32)
+    n_bytes = nbytes(z, c, a, d2)
+    bound_ms, bound_by = bound(n_bytes, 3 * 2.0 * n * k * d, "tf32")
+    cuda_cores_ms, cuda_cores_by = bound(n_bytes, 2.0 * n * k * d,
+                                         torch.float32)
     return {"shape": [n, d, k], "dtype": "f32",
             "max_abs_err": (d2 - pd2).abs().max().item(),
             "ms": time_ms(lambda: router_assign(z, c)),
+            "graph_ms": graph_ms(lambda: router_assign(z, c)),
             "plain_ms": time_ms(lambda: ref.router_assign_ref(z, c)),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_f32_cuda_cores": cuda_cores_ms,
+            "bound_by_f32_cuda_cores": cuda_cores_by,
             "library_ms": time_ms(lambda: torch.cdist(z, c).argmin(-1))}
 
 
@@ -1048,13 +1092,72 @@ def train(cfg) -> dict:
     assert all(np.isfinite(losses)) and np.isfinite(evaluated["nll"]), out
     assert losses[1] < losses[0], losses
     steps = W * TAU * PHASES                  # inner steps of all workers
-    for name in ("flash_attention_lse", "flash_attention_dkv",
-                 "flash_attention_dq"):
+    # with remat the backward recomputes each layer group's forward: the
+    # LSE forward runs twice a block and worker step, dK/dV and dQ once
+    forwards = 2 if cfg.remat else 1
+    assert launched["flash_attention_lse"] == \
+        forwards * cfg.num_layers * steps, launched
+    for name in ("flash_attention_dkv", "flash_attention_dq"):
         assert launched[name] == cfg.num_layers * steps, (name, launched)
     # one per Lloyd iteration, the final assignment, and the validation
     assert launched["router_assign"] == KMEANS_ITERS + 2, launched
     assert launched["flash_attention"] > 0, launched
     out["device_busy_share"] = train_busy_share(tr)
+    return out
+
+
+def remat_cost(cfg) -> dict:
+    """One worker's inner step (loss, gradient, AdamW) at the training
+    shape (TRAIN_BATCH x DOC_LEN), with remat as configured and without:
+    the host-clock median of 7 steps after two warm-up steps, the device
+    time of one more (profiled), and the peak device memory over the
+    timed steps (and above what was resident before them: weights, AdamW
+    state, batch).  The peak with remat must be the lower."""
+    params = api.init_model(cfg, seed=3, device="cuda")
+    opt = adamw_init(params)
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
+                             seq_len=DOC_LEN, seed=6)
+    batch = {"tokens": torch.as_tensor(corpus.sample_documents(TRAIN_BATCH),
+                                       device="cuda")}
+    lr = torch.tensor(1e-3, device="cuda")
+    out = {}
+    for remat in (cfg.remat, not cfg.remat):
+        c = cfg.replace(remat=remat)
+
+        def step():
+            _, _, grads = value_and_grad(params, c, batch)
+            return adamw_update(grads, opt, params, lr=lr)
+
+        for _ in range(2):
+            step()
+        free_memory()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        seconds = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        # the device's work in one step (kernel time summed from a
+        # profile), steadier than the host clock, which spreads up to 2x
+        # between calls
+        prof = profiled(step, 4)
+        out["remat" if remat else "no_remat"] = {
+            "step_ms": float(np.median(seconds)) * 1e3,
+            "step_ms_all": [x * 1e3 for x in seconds],
+            "device_ms": prof["device_ms"], "busy_share": prof["busy_share"],
+            "peak_memory_gib": peak / 2 ** 30,
+            "peak_above_resident_gib": (peak - resident) / 2 ** 30}
+    out["remat_policy"] = cfg.remat_policy
+    print(f"[train remat] one worker's inner step, B{TRAIN_BATCH} "
+          f"S{DOC_LEN}: {out}")
+    assert out["remat"]["peak_memory_gib"] < \
+        out["no_remat"]["peak_memory_gib"], out
+    del params, opt
+    free_memory()
     return out
 
 
@@ -1148,6 +1251,7 @@ def main() -> int:
     t0 = time.perf_counter()
 
     trained = train(cfg.replace(route_prefix_len=32))
+    trained["remat_cost"] = remat_cost(cfg.replace(route_prefix_len=32))
     grads = {dt: train_grad_parity(cfg, dt) for dt in ("float32", "bfloat16")}
     free_memory()
     phase_s["train dipaco-150m"] = time.perf_counter() - t0

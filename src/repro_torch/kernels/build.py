@@ -83,7 +83,7 @@ def build(names=SOURCES) -> dict:
 # this alone when libcuda lacks cuTensorMapEncodeTiled, else plus the
 # CUresult it returned
 ERR_TENSOR_MAP = 10000
-# what it returns for a bf16 input whose base address is not 16-byte
+# what it returns for an input whose base address is not 16-byte
 # aligned, which TMA cannot load
 ERR_MISALIGNED = 9000
 
@@ -91,7 +91,7 @@ ERR_MISALIGNED = 9000
 def check_rc(rc: int, name: str) -> None:
     """Raise unless a kernel's C entry point returned 0."""
     if rc == ERR_MISALIGNED:
-        raise RuntimeError(f"{name}: a bf16 input's base address is not "
+        raise RuntimeError(f"{name}: an input's base address is not "
                            f"16-byte aligned, which TMA needs (pass a "
                            f"copy, not a view that starts inside a row)")
     if rc == ERR_TENSOR_MAP:

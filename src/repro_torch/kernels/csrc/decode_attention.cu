@@ -11,34 +11,55 @@
 // K and V once and does 4*D flops per slot and query head: about one
 // flop per byte for MHA, far below the ~295 flops per byte at which the
 // card stops being bound by memory.  So the bound is bytes: the valid
-// part of the cache over 3.35 TB/s.  At serving batch sizes the TPU
-// kernel's sequential walk over the cache would also leave most SMs
-// idle.
+// part of the cache over 3.35 TB/s.  At the serving shape (B8, 80 slots)
+// those bytes take less than one kernel launch, so there the launch
+// count is the cost.
 //
 // What the design does about it.
-//  * Split-K: grid (B*KH, num_splits).  The wrapper picks num_splits so
-//    that the card has about two blocks per SM; each split walks its own
-//    stretch of the cache length and writes a partial (m, l, acc), and a
-//    second small kernel combines the splits.
+//  * One kernel per call.  Grid (B*KH, num_splits): the wrapper picks
+//    num_splits so that the card has about two blocks per SM.  With one
+//    split (every serving step) a block writes its output directly.  With
+//    several, each block writes its partial (m, l, acc) to the workspace
+//    and bumps an arrival counter for its (b, kh) row; the last block to
+//    arrive combines the splits in split order (so the result does not
+//    depend on which block came last), writes the output and resets the
+//    counter to 0, which the wrapper's counter buffer holds at rest.
+//  * K and V reach shared memory by TMA: a 4-D tensor map over
+//    (B, T, KH, D) with a box of TILE slots of one (b, kh) row (about
+//    4 KB of K, 32-64 slots), loaded by a producer warp into a ring of 3
+//    stages that complete on mbarriers, so the next tiles' loads overlap
+//    the current tile's math.  Small stages keep several blocks (rows) on
+//    each SM: 8 math warps a block with 3 stages of 4 KB tiles took
+//    0.155 ms at B64 T2048 bf16 on an H100 (700 W), 4 warps with 4 stages
+//    of 8 KB 0.178.  With 4-8 query heads a KV head the heads'
+//    accumulators limit the warps an SM holds, and a block has 4 (Plan).
+//    Only tiles that hold a valid slot are requested (after a ring wrap
+//    the valid slots form up to two stretches).  int8 scales have a 4 KH
+//    byte slot stride (no TMA box at KH 1): each thread loads its slots'
+//    scales a tile ahead with plain loads.
 //  * Every block reads its row's cache_index from device memory and
-//    rebuilds each ring slot's absolute position (decode_attention.py:
-//    57-67), so cache_index never goes to the host.  Unwritten, future
-//    and window-expired slots are masked; a slot that is masked is never
-//    loaded, and a warp whose slots are all masked skips the pass.
-//  * Loads are 16 bytes per thread (8 elements of bf16, 8 of int8 in an
-//    8-byte load, 8 of f32 in two loads); the D/8 threads of a key read
-//    one contiguous row.  The G query heads of a KV head live in the
-//    block's registers and share every K/V load.
-//  * int8 K/V are dequantized with their scales in registers, so the
-//    quantized cache is read once and never expanded in memory.
+//    rebuilds the valid ring slots (decode_attention.py:57-67): the
+//    positions [max(0, ci - T + 1, ci - window + 1), ci] mapped mod T.
+//    Nothing goes to the host, so a decode step can be captured in a
+//    CUDA graph.  Masked slots are never used; a warp whose slots in a
+//    pass are all masked skips it.
+//  * The math stays f32 on the CUDA cores: with at most 8 query heads a
+//    KV head, a 64-row wgmma tile would be at most one-eighth used, and
+//    the kernel is bound by bytes.  The D/8 threads of a key each take 8
+//    elements from shared memory (16 bytes of bf16); the G query heads of
+//    a KV head live in registers and share every K/V element; int8 is
+//    dequantized with its scales in registers.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int VEC = 8;          // cache elements per thread per key
+constexpr int STAGES = 3;
+constexpr int TILE_BYTES = 4096;          // of K (and of V) a stage
+constexpr int VEC = 8;                    // cache elements per thread per key
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -54,7 +75,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
-// 8 consecutive cache elements -> f32
+// 8 consecutive cache elements (in shared memory) -> f32
 __device__ __forceinline__ void load8(const float* p, float* out) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
   const float4 b = reinterpret_cast<const float4*>(p)[1];
@@ -74,33 +95,131 @@ __device__ __forceinline__ void load8(const int8_t* p, float* out) {
   for (int i = 0; i < 8; ++i) out[i] = (float)e[i];
 }
 
+template <typename TKV, int D, int GMAX>
+struct Plan {
+  // 8 warps of math up to 2 query heads a KV head.  From 4, the heads'
+  // accumulators take 120-200 registers a thread: 4 warps a block and
+  // at least 3 blocks an SM (at G 8 on an H100: 0.81 ms at B1024 KH1
+  // T2048, against 1.22 with one block an SM and 0.89 with 8 warps)
+  static constexpr int CONSUMERS = GMAX <= 2 ? 256 : 128;
+  static constexpr int THREADS = CONSUMERS + 32;      // + the producer warp
+  static constexpr int MIN_BLOCKS = GMAX <= 2 ? 1 : 3;
+  static constexpr int ROWB = D * (int)sizeof(TKV);   // bytes of one slot
+  static constexpr int TPK = D / VEC;                 // threads per key
+  static constexpr int KPP = CONSUMERS / TPK;         // keys per pass
+  static constexpr int RAW = TILE_BYTES / ROWB;
+  static constexpr int LO = KPP > 32 ? KPP : 32, HI = KPP > 64 ? KPP : 64;
+  static constexpr int TILE = RAW < LO ? LO : (RAW > HI ? HI : RAW);
+  static constexpr int TB = TILE * ROWB;              // one K or V tile
+  static constexpr int STAGE = 2 * TB;
+  static constexpr int PASSES = TILE / KPP;
+  // the block's partials of its KPP keys in flight, staged through the
+  // drained ring: m and l (KPP x GMAX), acc (KPP x GMAX x D)
+  static constexpr int COMBINE = KPP * GMAX * (D + 2) * 4;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr size_t SMEM =
+      1024 + (RING > COMBINE ? RING : COMBINE) + 2 * STAGES * 8;
+  static_assert(TILE % KPP == 0, "a tile is whole passes");
+};
+
+// The ring slots of one (b, kh) row that hold a valid position: the
+// positions [lo, ci] map to the slots s0, s0 + 1, ... (mod T), nv of them
+// (nv <= 0: none, for ci < 0).
+struct Valid {
+  int s0, nv, T;
+  __device__ Valid(int ci, int T_, int window) : T(T_) {
+    int lo = max(0, ci - T + 1);
+    if (window > 0) lo = max(lo, ci - window + 1);
+    nv = ci - lo + 1;
+    s0 = nv > 0 ? lo % T : 0;
+  }
+  __device__ bool slot(int t) const {
+    return nv > 0 && (t - s0 + T) % T < nv;
+  }
+  // does [a, b) (0 <= a, b <= T) hold a valid slot?
+  __device__ bool any(int a, int b) const {
+    if (nv <= 0 || a >= b) return false;
+    const int e = s0 + nv;
+    if (a < min(e, T) && b > s0) return true;
+    return e > T && a < e - T;
+  }
+};
+
+// the first tile at or after `tile` (of this split's [t0, t1)) that holds
+// a valid slot; `tiles` when none does
+template <int TILE>
+__device__ __forceinline__ int next_tile(const Valid& v, int tile, int tiles,
+                                         int t0, int t1) {
+  for (; tile < tiles; ++tile) {
+    const int a = max(t0, tile * TILE), b = min(t1, (tile + 1) * TILE);
+    if (v.any(a, b)) return tile;
+  }
+  return tiles;
+}
+
 template <typename TQ, typename TKV, int D, int GMAX>
-__global__ void __launch_bounds__(THREADS)
-decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
-                    const TKV* __restrict__ vc,
-                    const float* __restrict__ k_scale,
-                    const float* __restrict__ v_scale,
-                    const int* __restrict__ cache_index,
-                    float* __restrict__ part_m, float* __restrict__ part_l,
-                    float* __restrict__ part_acc, int T, int KH, int G,
-                    int window, int chunk, float scale) {
-  constexpr int TPK = D / VEC;            // threads per key: 4, 8 or 16
-  constexpr int KPP = THREADS / TPK;      // keys per pass: 32, 16 or 8
+__global__ void __launch_bounds__(Plan<TKV, D, GMAX>::THREADS,
+                                  Plan<TKV, D, GMAX>::MIN_BLOCKS)
+decode_kernel(const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v,
+              const TQ* __restrict__ q, const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale,
+              const int* __restrict__ cache_index, float* __restrict__ part,
+              int* __restrict__ counters, TQ* __restrict__ out, int T,
+              int KH, int G, int window, int chunk, float scale) {
+  using P = Plan<TKV, D, GMAX>;
+  constexpr int CONSUMERS = P::CONSUMERS;
   constexpr bool QUANT = sizeof(TKV) == 1;
-  __shared__ float sm_m[KPP * GMAX];
-  __shared__ float sm_l[KPP * GMAX];
-  __shared__ float sm_acc[KPP * GMAX * D];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + (P::RING > P::COMBINE ? P::RING : P::COMBINE));
+  uint64_t* empty = full + STAGES;
+  __shared__ int last_block;
 
   const int tid = threadIdx.x;
-  const int kg = tid / TPK;               // this thread's key in a pass
-  const int sub = tid % TPK;              // its 8 dims: sub*8 .. sub*8+7
   const int b = blockIdx.x / KH;
   const int kh = blockIdx.x % KH;
   const int split = blockIdx.y;
   const int nsplit = gridDim.y;
   const int H = KH * G;
-  const int ci = cache_index[b];
-  const int idx_last = ((ci % T) + T) % T;
+  const Valid valid(cache_index[b], T, window);
+  const int t0 = min(T, split * chunk);
+  const int t1 = min(T, t0 + chunk);
+  const int tiles = (t1 + P::TILE - 1) / P::TILE;
+  const int first = t0 / P::TILE;         // chunk is a multiple of TILE
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // producer: one thread keeps up to STAGES tiles of K and V in flight
+    if (tid == CONSUMERS) {
+      int n = 0;
+      for (int tile = next_tile<P::TILE>(valid, first, tiles, t0, t1);
+           tile < tiles;
+           tile = next_tile<P::TILE>(valid, tile + 1, tiles, t0, t1), ++n) {
+        const int s = n % STAGES;
+        if (n >= STAGES) hopper::mbar_wait(&empty[s], (n / STAGES - 1) & 1);
+        uint8_t* st = smem + s * P::STAGE;
+        hopper::mbar_expect_tx(&full[s], P::STAGE);
+        hopper::tma_load_4d(st, &tm_k, &full[s], 0, kh, tile * P::TILE, b);
+        hopper::tma_load_4d(st + P::TB, &tm_v, &full[s], 0, kh,
+                            tile * P::TILE, b);
+      }
+    }
+    return;
+  }
+
+  const int kg = tid / P::TPK;             // this thread's key in a pass
+  const int sub = tid % P::TPK;            // its 8 dims: sub*8 .. sub*8+7
+  const int lane = tid % 32;
 
   float qr[GMAX][VEC];
 #pragma unroll
@@ -122,51 +241,84 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
     for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
   }
 
-  const int t_begin = split * chunk;
-  const int t_end = min(T, t_begin + chunk);
-  for (int t0 = t_begin; t0 < t_end; t0 += KPP) {
-    const int t = t0 + kg;
-    // absolute position held by ring slot t (decode_attention.py:63-67)
-    const int pos = t <= idx_last ? ci - idx_last + t : ci - idx_last - T + t;
-    const bool valid = t < t_end && pos >= 0 && pos <= ci &&
-                       (window <= 0 || pos > ci - window);
-    if (!__any_sync(0xffffffffu, valid)) continue;   // warp-uniform skip
-    float kf[VEC], vf[VEC];
-    if (valid) {
-      const long row = ((long)b * T + t) * KH + kh;
-      load8(kc + row * D + sub * VEC, kf);
-      load8(vc + row * D + sub * VEC, vf);
+  // int8: this thread's scales of the current tile, and of the next
+  // needed tile loaded a tile ahead
+  float sk[P::PASSES], sv[P::PASSES];
+  auto load_scales = [&](int at, float* to_k, float* to_v) {
+#pragma unroll
+    for (int p = 0; p < P::PASSES; ++p) {
+      const int t = at * P::TILE + p * P::KPP + kg;
+      to_k[p] = to_v[p] = 0.f;
+      if (t >= t0 && t < t1 && valid.slot(t)) {
+        const long row = ((long)b * T + t) * KH + kh;
+        to_k[p] = k_scale[row];
+        to_v[p] = v_scale[row];
+      }
+    }
+  };
+  int tile = next_tile<P::TILE>(valid, first, tiles, t0, t1);
+  if (QUANT && tile < tiles) load_scales(tile, sk, sv);
+  for (int n = 0; tile < tiles; ++n) {
+    const int nxt = next_tile<P::TILE>(valid, tile + 1, tiles, t0, t1);
+    float next_k[P::PASSES], next_v[P::PASSES];
+    if (QUANT && nxt < tiles) load_scales(nxt, next_k, next_v);
+    const int s = n % STAGES;
+    hopper::mbar_wait(&full[s], (n / STAGES) & 1);
+    const TKV* ks = reinterpret_cast<const TKV*>(smem + s * P::STAGE);
+    const TKV* vs = reinterpret_cast<const TKV*>(smem + s * P::STAGE + P::TB);
+#pragma unroll
+    for (int p = 0; p < P::PASSES; ++p) {
+      const int r = p * P::KPP + kg;       // row of the tile
+      const int t = tile * P::TILE + r;
+      const bool ok = t >= t0 && t < t1 && valid.slot(t);
+      if (!__any_sync(0xffffffffu, ok)) continue;   // warp-uniform skip
+      float kf[VEC], vf[VEC];
+      load8(ks + r * D + sub * VEC, kf);
+      load8(vs + r * D + sub * VEC, vf);
       if (QUANT) {
-        const float ks = k_scale[row], vs = v_scale[row];
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) { kf[e] *= ks; vf[e] *= vs; }
+        for (int e = 0; e < VEC; ++e) { kf[e] *= sk[p]; vf[e] *= sv[p]; }
       }
-    } else {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) { kf[e] = 0.f; vf[e] = 0.f; }
-    }
+      for (int g = 0; g < GMAX; ++g) {
+        float sc = 0.f;
 #pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      float s = 0.f;
+        for (int e = 0; e < VEC; ++e) sc += qr[g][e] * kf[e];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) s += qr[g][e] * kf[e];
+        for (int off = P::TPK / 2; off > 0; off >>= 1)
+          sc += __shfl_xor_sync(0xffffffffu, sc, off);
+        if (ok && g < G) {
+          sc *= scale;
+          const float m_new = fmaxf(m[g], sc);
+          const float alpha = expf(m[g] - m_new);
+          const float pr = expf(sc - m_new);
+          l[g] = l[g] * alpha + pr;
 #pragma unroll
-      for (int off = TPK / 2; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (valid && g < G) {
-        s *= scale;
-        const float m_new = fmaxf(m[g], s);
-        const float alpha = expf(m[g] - m_new);
-        const float p = expf(s - m_new);
-        l[g] = l[g] * alpha + p;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] = acc[g][e] * alpha + p * vf[e];
-        m[g] = m_new;
+          for (int e = 0; e < VEC; ++e)
+            acc[g][e] = acc[g][e] * alpha + pr * vf[e];
+          m[g] = m_new;
+        }
       }
     }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    if (QUANT) {
+#pragma unroll
+      for (int p = 0; p < P::PASSES; ++p) {
+        sk[p] = next_k[p];
+        sv[p] = next_v[p];
+      }
+    }
+    tile = nxt;
   }
 
-  // combine the KPP keys-in-flight of this block into one partial
+  // combine the KPP keys in flight of this block into one partial, staged
+  // through the ring (every tile has been consumed once all consumers
+  // pass the barrier)
+  asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
+  float* sm_m = reinterpret_cast<float*>(smem);
+  float* sm_l = sm_m + P::KPP * GMAX;
+  float* sm_acc = sm_l + P::KPP * GMAX;
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
     if (sub == 0) {
@@ -177,73 +329,112 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
     for (int e = 0; e < VEC; ++e)
       sm_acc[(kg * GMAX + g) * D + sub * VEC + e] = acc[g][e];
   }
-  __syncthreads();
-  for (int i = tid; i < G * D; i += THREADS) {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
+  const long rows = (long)gridDim.x / KH * H * nsplit;   // B H nsplit
+  float* part_m = part;
+  float* part_l = part + rows;
+  float* part_acc = part + 2 * rows;
+  for (int i = tid; i < G * D; i += CONSUMERS) {
     const int g = i / D, d = i % D;
     float M = NEG_INF;
-    for (int kk = 0; kk < KPP; ++kk) M = fmaxf(M, sm_m[kk * GMAX + g]);
+    for (int kk = 0; kk < P::KPP; ++kk) M = fmaxf(M, sm_m[kk * GMAX + g]);
     float L = 0.f, A = 0.f;
-    for (int kk = 0; kk < KPP; ++kk) {
+    for (int kk = 0; kk < P::KPP; ++kk) {
       const float w = expf(sm_m[kk * GMAX + g] - M);
       L += sm_l[kk * GMAX + g] * w;
       A += sm_acc[(kk * GMAX + g) * D + d] * w;
     }
-    const long prow = ((long)b * H + kh * G + g) * nsplit + split;
-    part_acc[prow * D + d] = A;
-    if (d == 0) {
-      part_m[prow] = M;
-      part_l[prow] = L;
+    const long orow = (long)b * H + kh * G + g;
+    if (nsplit == 1) {
+      out[orow * D + d] = from_f<TQ>(A / fmaxf(L, 1e-30f));
+    } else {
+      const long prow = orow * nsplit + split;
+      part_acc[prow * D + d] = A;
+      if (d == 0) {
+        part_m[prow] = M;
+        part_l[prow] = L;
+      }
     }
   }
-}
+  if (nsplit == 1) return;
 
-// one block per (b, h) row, one thread per output dim
-template <typename TO>
-__global__ void decode_combine_kernel(const float* __restrict__ part_m,
-                                      const float* __restrict__ part_l,
-                                      const float* __restrict__ part_acc,
-                                      TO* __restrict__ out, int nsplit,
-                                      int D) {
-  const long row = blockIdx.x;
-  const int d = threadIdx.x;
-  float M = NEG_INF;
-  for (int s = 0; s < nsplit; ++s) M = fmaxf(M, part_m[row * nsplit + s]);
-  float L = 0.f, A = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const float w = expf(part_m[row * nsplit + s] - M);
-    L += part_l[row * nsplit + s] * w;
-    A += part_acc[(row * nsplit + s) * D + d] * w;
+  // the last split of this (b, kh) row to arrive combines them all
+  __threadfence();
+  asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
+  if (tid == 0)
+    last_block = atomicAdd(&counters[blockIdx.x], 1) == nsplit - 1;
+  asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
+  if (!last_block) return;
+  __threadfence();
+  for (int i = tid; i < G * D; i += CONSUMERS) {
+    const int g = i / D, d = i % D;
+    const long prow = ((long)b * H + kh * G + g) * nsplit;
+    float M = NEG_INF;
+    for (int s = 0; s < nsplit; ++s) M = fmaxf(M, __ldcg(part_m + prow + s));
+    float L = 0.f, A = 0.f;
+    for (int s = 0; s < nsplit; ++s) {
+      const float w = expf(__ldcg(part_m + prow + s) - M);
+      L += __ldcg(part_l + prow + s) * w;
+      A += __ldcg(part_acc + (prow + s) * D + d) * w;
+    }
+    out[((long)b * H + kh * G + g) * D + d] = from_f<TQ>(A / fmaxf(L, 1e-30f));
   }
-  out[row * D + d] = from_f<TO>(A / fmaxf(L, 1e-30f));
+  if (tid == 0) counters[blockIdx.x] = 0;
 }
 
 struct Args {
   const void *q, *kc, *vc, *ks, *vs, *ci;
-  float *pm, *pl, *pa;
+  float* part;
+  int* counters;
   void* out;
   int B, T, H, KH, D, window, nsplit;
   cudaStream_t stream;
 };
 
+template <typename TKV>
+constexpr CUtensorMapDataType tma_type() {
+  return sizeof(TKV) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+         : sizeof(TKV) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+}
+
 template <typename TQ, typename TKV, int D, int GMAX>
-cudaError_t launch(const Args& a) {
-  const int G = a.H / a.KH;
-  const int chunk = (a.T + a.nsplit - 1) / a.nsplit;
+int launch(const Args& a) {
+  using P = Plan<TKV, D, GMAX>;
+  // (B, T, KH, D) innermost first; a box of TILE slots of one (b, kh)
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)a.KH,
+                              (cuuint64_t)a.T, (cuuint64_t)a.B};
+  const cuuint64_t strides[3] = {(cuuint64_t)P::ROWB,
+                                 (cuuint64_t)a.KH * P::ROWB,
+                                 (cuuint64_t)a.T * a.KH * P::ROWB};
+  const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)P::TILE, 1};
+  CUtensorMap tm_k, tm_v;
+  int rc = hopper::encode(&tm_k, tma_type<TKV>(), a.kc, 4, dims, strides,
+                          box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (rc == 0)
+    rc = hopper::encode(&tm_v, tma_type<TKV>(), a.vc, 4, dims, strides, box,
+                        CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (rc != 0) return rc;
+  // once per instantiation (a thread-safe static)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_kernel<TQ, TKV, D, GMAX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::SMEM);
+  if (attr != cudaSuccess) return attr;
+  // whole tiles a split, so a tile never straddles two splits
+  const int per = (a.T + a.nsplit - 1) / a.nsplit;
+  const int chunk = (per + P::TILE - 1) / P::TILE * P::TILE;
   const dim3 grid(a.B * a.KH, a.nsplit);
-  decode_split_kernel<TQ, TKV, D, GMAX><<<grid, THREADS, 0, a.stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.kc),
-      static_cast<const TKV*>(a.vc), static_cast<const float*>(a.ks),
-      static_cast<const float*>(a.vs), static_cast<const int*>(a.ci), a.pm,
-      a.pl, a.pa, a.T, a.KH, G, a.window, chunk, 1.0f / sqrtf((float)D));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_combine_kernel<TQ><<<a.B * a.H, D, 0, a.stream>>>(
-      a.pm, a.pl, a.pa, static_cast<TQ*>(a.out), a.nsplit, D);
+  decode_kernel<TQ, TKV, D, GMAX><<<grid, P::THREADS, P::SMEM, a.stream>>>(
+      tm_k, tm_v, static_cast<const TQ*>(a.q),
+      static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
+      static_cast<const int*>(a.ci), a.part, a.counters,
+      static_cast<TQ*>(a.out), a.T, a.KH, a.H / a.KH, a.window, chunk,
+      1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 template <typename TQ, typename TKV, int D>
-cudaError_t dispatch_g(const Args& a) {
+int dispatch_g(const Args& a) {
   const int G = a.H / a.KH;
   if (G <= 1) return launch<TQ, TKV, D, 1>(a);
   if (G <= 2) return launch<TQ, TKV, D, 2>(a);
@@ -253,7 +444,7 @@ cudaError_t dispatch_g(const Args& a) {
 }
 
 template <typename TQ, typename TKV>
-cudaError_t dispatch_d(const Args& a) {
+int dispatch_d(const Args& a) {
   switch (a.D) {
     case 32: return dispatch_g<TQ, TKV, 32>(a);
     case 64: return dispatch_g<TQ, TKV, 64>(a);
@@ -265,22 +456,29 @@ cudaError_t dispatch_d(const Args& a) {
 }  // namespace
 
 // q_dtype: 0 = f32, 1 = bf16.  kv_dtype: 0 = f32, 1 = bf16, 2 = int8
-// (then k_scale / v_scale are (B,T,KH) f32).  The partial buffers are
-// f32: part_m and part_l (B*H*num_splits), part_acc (B*H*num_splits*D).
-// window <= 0: no window.  Returns a cudaError_t (0 on success).
+// (then k_scale / v_scale are (B,T,KH) f32).  With num_splits > 1:
+// `part` is f32 scratch of B H num_splits (D + 2) floats, and `counters`
+// B KH int32 that are 0 (the kernel leaves them 0).  window <= 0: no
+// window.  Returns a cudaError_t (0 on success), hopper::ERR_MISALIGNED
+// for a cache whose base is not 16-byte aligned, or
+// hopper::ERR_TENSOR_MAP + a CUresult when a TMA tensor map cannot be
+// encoded.
 extern "C" int flash_decode(const void* q, const void* k_cache,
                             const void* v_cache, const void* k_scale,
                             const void* v_scale, const void* cache_index,
-                            void* part_m, void* part_l, void* part_acc,
-                            void* out, int B, int T, int H, int KH, int D,
-                            int window, int num_splits, int q_dtype,
-                            int kv_dtype, void* stream) {
-  if (B < 1 || T < 1 || KH < 1 || H % KH != 0 || num_splits < 1)
+                            void* part, void* counters, void* out, int B,
+                            int T, int H, int KH, int D, int window,
+                            int num_splits, int q_dtype, int kv_dtype,
+                            void* stream) {
+  if (B < 1 || T < 1 || KH < 1 || H % KH != 0 || num_splits < 1 ||
+      (num_splits > 1 && (part == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
+  if (!hopper::aligned16(k_cache) || !hopper::aligned16(v_cache))
+    return hopper::ERR_MISALIGNED;
   Args a{q, k_cache, v_cache, k_scale, v_scale, cache_index,
-         static_cast<float*>(part_m), static_cast<float*>(part_l),
-         static_cast<float*>(part_acc), out, B, T, H, KH, D, window,
-         num_splits, static_cast<cudaStream_t>(stream)};
+         static_cast<float*>(part), static_cast<int*>(counters), out,
+         B, T, H, KH, D, window, num_splits,
+         static_cast<cudaStream_t>(stream)};
   if (q_dtype == 0 && kv_dtype == 0) return dispatch_d<float, float>(a);
   if (q_dtype == 1 && kv_dtype == 1)
     return dispatch_d<__nv_bfloat16, __nv_bfloat16>(a);

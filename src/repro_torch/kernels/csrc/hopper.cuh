@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the tensor-core kernels (sm_90a):
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
 // wgmma instructions themselves, and the host-side encoding of TMA tensor
-// maps.  Included by moe_gmm.cu, flash_attention.cu and
-// flash_attention_bwd.cu; no kernel here.
+// maps.  Included by moe_gmm.cu, flash_attention.cu,
+// flash_attention_bwd.cu, router_assign.cu and decode_attention.cu; no
+// kernel here.
 //
 // Tensor maps are encoded on the host with cuTensorMapEncodeTiled, a
 // libcuda function reached through cudaGetDriverEntryPoint, so the
@@ -65,6 +66,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // --------------------------------------------------------------------------
 // TMA tile loads into shared memory, completing on an mbarrier
 // --------------------------------------------------------------------------
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2) {
@@ -187,6 +198,12 @@ template <int N, int TA, int TB> struct WgmmaSS;
 // (row r, k 2c), (row r + 8, k 2c), (row r, k 8 + 2c), (row r + 8,
 // k 8 + 2c) for r = 16 (t / 32) + (t % 32) / 4 and c = t % 4.
 template <int N, int TB> struct WgmmaRS;
+// D (64 x N, f32) += A (64 x 8) B (8 x N), both tf32 (f32 bit patterns
+// whose low 13 mantissa bits are zero): m64nNk8, A in registers, B a
+// K-major descriptor (tf32 takes no transpose).  a[0..3] hold (row r,
+// k c), (row r + 8, k c), (row r, k c + 4), (row r + 8, k c + 4) for
+// r = 16 (t / 32) + (t % 32) / 4 and c = t % 4; D as at WgmmaSS.
+template <int N> struct WgmmaTF32RS;
 
 template <int TA, int TB>
 struct WgmmaSS<8, TA, TB> {
@@ -557,6 +574,121 @@ struct WgmmaRS<128, TB> {
   }
 };
 
+template <int TB>
+struct WgmmaRS<8, TB> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3"
+        "}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+          "n"(TB));
+  }
+};
+
+template <int TB>
+struct WgmmaRS<16, TB> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+          "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaTF32RS<8> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3"
+        "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTF32RS<16> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTF32RS<32> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTF32RS<64> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+// x rounded to tf32 (round to nearest, ties away), as an f32 bit pattern
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
 // --------------------------------------------------------------------------
 // Host: TMA tensor maps
 // --------------------------------------------------------------------------
@@ -570,8 +702,8 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
 // Returned by the entry points when a tensor map cannot be encoded (not a
 // cudaError_t, so the caller can tell the two apart).
 constexpr int ERR_TENSOR_MAP = 10000;
-// Returned by the entry points for a bf16 input whose base address is not
-// 16-byte aligned: TMA cannot load it, and there is no other bf16 path.
+// Returned by the entry points for an input that TMA loads whose base
+// address is not 16-byte aligned: there is no other path for it.
 constexpr int ERR_MISALIGNED = 9000;
 
 inline bool aligned16(const void* p) {
@@ -593,22 +725,29 @@ inline EncodeTiledFn lookup_encode_tiled() {
              : nullptr;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first), byte strides of
-// dims 1.. in `strides`, box `box`, zero fill out of range.  Returns 0,
-// ERR_TENSOR_MAP when libcuda has no cuTensorMapEncodeTiled, or
-// ERR_TENSOR_MAP + the CUresult it returned.
-inline int encode_bf16(CUtensorMap* map, const void* base, int rank,
-                       const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+// A tensor map of `rank` dims (innermost first) of element type `type`,
+// byte strides of dims 1.. in `strides`, box `box`, zero fill out of
+// range.  Returns 0, ERR_TENSOR_MAP when libcuda has no
+// cuTensorMapEncodeTiled, or ERR_TENSOR_MAP + the CUresult it returned.
+inline int encode(CUtensorMap* map, CUtensorMapDataType type,
+                  const void* base, int rank, const cuuint64_t* dims,
+                  const cuuint64_t* strides, const cuuint32_t* box,
+                  CUtensorMapSwizzle swizzle) {
   static const EncodeTiledFn fn = lookup_encode_tiled();  // once, safely
   if (fn == nullptr) return ERR_TENSOR_MAP;
   cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + static_cast<int>(r);
+}
+
+inline int encode_bf16(CUtensorMap* map, const void* base, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                strides, box, swizzle);
 }
 
 // The tensor map of a (B, S, NH, D) bf16 tensor, row-major and

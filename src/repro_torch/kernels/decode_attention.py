@@ -2,11 +2,13 @@
 (replaces the TPU kernel ``repro/kernels/decode_attention.py:103
 flash_decode``).
 
-Single-token GQA attention over the ring KV cache, split-K over the
-cache length with a combine pass.  Takes CUDA tensors only;
+Single-token GQA attention over the ring KV cache in one kernel launch
+a call: split-K over the cache length, the last split of each row
+combining the others.  Nothing is read back to the host, so a decode
+step can be captured in a CUDA graph.  Takes CUDA tensors only;
 ``ops.decode_attention`` sends CPU tensors to the plain version
 (``ref.flash_decode_ref``).  ``flash_decode.launches`` counts the
-launches (one per call: the split kernel and its combine).
+launches.
 """
 from __future__ import annotations
 
@@ -27,18 +29,40 @@ def _lib():
     fn = build.load("decode_attention").flash_decode
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 9 + [p]
+        fn.argtypes = [p] * 9 + [i] * 9 + [p]
         fn.restype = ctypes.c_int
     return fn
+
+
+_sm_count: dict = {}     # device index -> multiprocessors
+_counters: dict = {}     # device index -> the kernel's arrival counters
 
 
 def num_splits(batch: int, kv_heads: int, cache_len: int,
                device: torch.device) -> int:
     """Splits of the cache length: about two blocks per SM in all, and
     at least 64 slots per split."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sm_count.get(device.index)
+    if sms is None:
+        sms = _sm_count[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
     want = -(-2 * sms // (batch * kv_heads))
     return max(1, min(want, cache_len // 64))
+
+
+def arrival_counters(device: torch.device, rows: int) -> torch.Tensor:
+    """The kernel's int32 arrival counters, one per (b, kh) row, zero at
+    rest (the last block of a row resets its own).  One buffer per
+    device, made once, so a captured CUDA graph keeps a valid pointer:
+    splits > 1 only while B * KH < 2 * SMs, so it holds 2 * SMs rows."""
+    buf = _counters.get(device.index)
+    if buf is None:
+        buf = _counters[device.index] = torch.zeros(
+            2 * _sm_count[device.index], dtype=torch.int32, device=device)
+    if rows > buf.numel():
+        raise ValueError(f"{rows} rows exceed the {buf.numel()} arrival "
+                         f"counters")
+    return buf
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -98,17 +122,21 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
         raise ValueError("flash_decode needs 16-byte aligned q and caches")
     splits = num_splits(b, kh, T, dev)
-    part_m = torch.empty(b * h * splits, dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty(b * h * splits * d, dtype=torch.float32,
-                           device=dev)
     out = torch.empty_like(q)
+    part = counters = None
+    if splits > 1:
+        # the splits' (m, l, acc) partials, one f32 workspace
+        part = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                           device=dev)
+        counters = arrival_counters(dev, b * kh)
     ks = k_scale.data_ptr() if quantized else None
     vs = v_scale.data_ptr() if quantized else None
     rc = _lib()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ks, vs,
-                cache_index.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-                part_acc.data_ptr(), out.data_ptr(), b, T, h, kh, d,
-                window or 0, splits, _Q_DTYPE[q.dtype],
+                cache_index.data_ptr(),
+                None if part is None else part.data_ptr(),
+                None if counters is None else counters.data_ptr(),
+                out.data_ptr(), b, T, h, kh, d, window or 0, splits,
+                _Q_DTYPE[q.dtype],
                 _KV_DTYPE[k_cache.dtype],
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check_rc(rc, "flash_decode")

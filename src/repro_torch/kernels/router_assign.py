@@ -2,9 +2,13 @@
 ``csrc/router_assign.cu`` (replaces the TPU kernel
 ``repro/kernels/router_assign.py:29 router_assign``).
 
-Takes CUDA tensors only; ``ops.router_assign`` sends CPU tensors to the
-plain version (``ref.router_assign_ref``).  ``router_assign.launches``
-counts the kernel's launches.
+The products run on the tensor cores (f32 as 3xTF32, bf16 as it is),
+after a small kernel that writes the centroids' TF32 tables and norms
+into one workspace; rows whose width TMA cannot load (D not a multiple
+of 4 in f32, 8 in bf16) take a CUDA-core kernel.  Takes CUDA tensors
+only; ``ops.router_assign`` sends CPU tensors to the plain version
+(``ref.router_assign_ref``).  ``router_assign.launches`` counts the
+calls that launch the kernels.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ def _lib():
     fn = build.load("router_assign").router_assign
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -47,8 +51,11 @@ def router_assign(z: torch.Tensor, centroids: torch.Tensor) -> tuple:
         raise ValueError("router_assign takes contiguous z and centroids")
     assign = torch.empty(n, dtype=torch.int32, device=z.device)
     mind2 = torch.empty(n, dtype=torch.float32, device=z.device)
+    # the centroids' TF32 hi and lo tables (f32) and their norms
+    work = torch.empty(2 * k * d + k if z.dtype == torch.float32 else k,
+                       dtype=torch.float32, device=z.device)
     rc = _lib()(z.data_ptr(), centroids.data_ptr(), assign.data_ptr(),
-                mind2.data_ptr(), n, k, d, DTYPES[z.dtype],
+                mind2.data_ptr(), work.data_ptr(), n, k, d, DTYPES[z.dtype],
                 torch.cuda.current_stream(z.device).cuda_stream)
     build.check_rc(rc, "router_assign")
     router_assign.launches += 1

@@ -10,7 +10,12 @@ place.  The VLM patch stub is not ported yet.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.device import resolve_device
 
@@ -116,23 +121,63 @@ def _apply_block(bp, cfg: ModelConfig, spec, x, *, positions, window,
     return x, aux
 
 
+def _apply_group(group, cfg: ModelConfig, x, aux, *, positions, window,
+                 caches=None, cache_index=None, is_prefill=False):
+    """One pass over ``cfg.pattern`` (the reference's scan body): group
+    and caches hold one layer's leaves per pattern position.  -> (x, aux
+    plus the group's MoE load-balance losses)."""
+    for i, spec in enumerate(cfg.pattern):
+        c = None if caches is None else caches[f"pos{i}"]
+        x, a = _apply_block(group[f"pos{i}"], cfg, spec, x,
+                            positions=positions, window=window, cache=c,
+                            cache_index=cache_index, is_prefill=is_prefill)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the weight products' outputs (what
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` keeps:
+    ``x @ w`` reaches the dispatcher as ``mm`` or ``addmm``), recompute
+    the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _scan_blocks(params, cfg: ModelConfig, x, *, positions, window,
                  caches=None, cache_index=None, is_prefill=False):
     """Walk the repeating pattern group over ``pattern_repeats``; each
     layer's cache is a view into the stacked cache, written in place.
-    -> (x, aux summed over the MoE blocks, f32)."""
+
+    With ``cfg.remat``, a cache-free forward that records gradients runs
+    each layer group under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` of its scan body): the backward recomputes the
+    group from its input, saving nothing (``remat_policy="full"``) or
+    the weight products (``"dots"``).  Prefill, decode and calls without
+    gradients run as they are.  -> (x, aux summed over the MoE blocks,
+    f32)."""
     aux = torch.zeros((), device=x.device)
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                    _save_dots)
+                  if cfg.remat_policy == "dots" else noop_context_fn)
     for r in range(cfg.pattern_repeats):
-        for i, spec in enumerate(cfg.pattern):
-            bp = tree_map(lambda a, r=r: a[r], params["blocks"][f"pos{i}"])
-            c = None if caches is None else \
-                {k: a[r] for k, a in caches[f"pos{i}"].items()}
-            x, a = _apply_block(bp, cfg, spec, x, positions=positions,
-                                window=window, cache=c,
-                                cache_index=cache_index,
-                                is_prefill=is_prefill)
-            if a is not None:
-                aux = aux + a
+        group = {k: tree_map(lambda a, r=r: a[r], v)
+                 for k, v in params["blocks"].items()}
+        c = None if caches is None else \
+            {k: {n: a[r] for n, a in v.items()} for k, v in caches.items()}
+        kw = dict(positions=positions, window=window, caches=c,
+                  cache_index=cache_index, is_prefill=is_prefill)
+        if remat:
+            x, aux = checkpoint(_apply_group, group, cfg, x, aux,
+                                use_reentrant=False, context_fn=context_fn,
+                                **kw)
+        else:
+            x, aux = _apply_group(group, cfg, x, aux, **kw)
     return x, aux
 
 

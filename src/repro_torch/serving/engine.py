@@ -11,7 +11,7 @@ Under ``cfg.attn_impl == "pallas"`` the routing features go through the
 flash-attention kernel and every decode step through flash-decode.
 
 The continuous-batching engine, the deployment registry and telemetry
-are not ported yet (ROADMAP queue 1, items 2 and 3).
+are not ported yet (ROADMAP queue 1, items 1 and 3).
 """
 from __future__ import annotations
 
@@ -49,7 +49,7 @@ class EngineOptions:
         if self.telemetry is not None:
             raise NotImplementedError(
                 "telemetry= is not ported to repro_torch yet (ROADMAP "
-                "queue 1, item 2: continuous engine and telemetry)")
+                "queue 1, item 1: continuous engine and telemetry)")
         if self.cache_len < 1:
             raise ValueError(f"cache_len must be >= 1, "
                              f"got {self.cache_len}")

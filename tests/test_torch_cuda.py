@@ -28,6 +28,11 @@ DECODE_CASES = [
     (2, 4, 2, 32, 40, [7, 90], 12),
     (3, 16, 2, 128, 300, [0, 299, 1000], 100),
     (8, 16, 16, 128, 80, [79] * 8, None),      # a qwen2-moe decode step
+    # one (b, kh) row over a long cache: several splits, which meet at the
+    # arrival counter (MHA, GQA with a window over a wrapped ring, MQA)
+    (1, 8, 8, 64, 2048, [2047], None),
+    (1, 16, 2, 128, 2048, [3000], 700),
+    (1, 4, 1, 32, 2048, [5000], None),
 ]
 # (B, S, H, KH, D, window): MHA, GQA, MQA, windows, ragged S, and the
 # edges of the bf16 tensor-core tiling: S 1 and 65 (a tail of one row, a
@@ -124,6 +129,59 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype, int8, b, h, kh, d, T,
                                rtol=0)
 
 
+def _decode_inputs(cuda, b, h, kh, d, T, ci, dtype=torch.bfloat16):
+    q, kc, vc = _randn(7, (b, h, d), (b, T, kh, d), (b, T, kh, d))
+    return (q.to(cuda, dtype), kc.to(cuda, dtype), vc.to(cuda, dtype),
+            torch.tensor(ci, dtype=torch.int32, device=cuda))
+
+
+def _device_kernels(fn) -> list:
+    """Names of the device kernels that one call of fn runs."""
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA
+            and "memcpy" not in e.name().lower()
+            and "memset" not in e.name().lower()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,T,ci", [(8, 80, [79] * 8), (1, 2048, [2047])])
+def test_flash_decode_is_one_kernel_a_call(cuda, b, T, ci):
+    """One split (the serving step) and several (the last split combines):
+    each call runs exactly one device kernel."""
+    from repro_torch.kernels.decode_attention import flash_decode
+    q, kc, vc, cit = _decode_inputs(cuda, b, 16, 16, 64, T, ci)
+    flash_decode(q, kc, vc, cit)            # first use: the counters
+    kernels = _device_kernels(lambda: flash_decode(q, kc, vc, cit))
+    assert len(kernels) == 1 and "decode_kernel" in kernels[0], kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,T,ci", [(8, 80, [79] * 8), (1, 2048, [3000])])
+def test_flash_decode_replays_from_a_cuda_graph(cuda, b, T, ci):
+    """No host sync in the call: it captures, and three replays give the
+    eager call's bits (the arrival counters return to 0 each time)."""
+    from repro_torch.kernels.decode_attention import flash_decode
+    q, kc, vc, cit = _decode_inputs(cuda, b, 16, 4, 64, T, ci)
+    eager = flash_decode(q, kc, vc, cit, window=1000)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        flash_decode(q, kc, vc, cit, window=1000)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = flash_decode(q, kc, vc, cit, window=1000)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
 @pytest.mark.cuda
 def test_model_decode_goes_through_both_kernels(cuda):
     """The wiring at smoke size: the pallas model's cache-free forward
@@ -145,7 +203,6 @@ def test_model_decode_goes_through_both_kernels(cuda):
     assert flash_attention.launches == fa + cfg.num_layers
     assert flash_decode.launches == fd + cfg.num_layers
     assert torch.isfinite(logits).all()
-
 
 
 # the backward cases of tests/test_kernels.py (B=2, causal and not, ragged
@@ -239,11 +296,19 @@ def test_bf16_backward_kernels_are_bit_identical_across_launches(
         assert torch.equal(a, c), name
 
 
+# (N, D, K): ragged N, one and several centroid tiles of each width (K 1,
+# 4, 16, 70, 256 and 257: two tiles of 192), D 36 (f32 on TMA; bf16 on
+# the CUDA cores), D 50 (the CUDA-core kernel in both types) and the
+# paper's table at N 4096
+ASSIGN_CASES = [(513, 32, 8), (1000, 64, 16), (256, 128, 4), (300, 96, 70),
+                (4096, 896, 256), (777, 896, 1), (2048, 896, 4),
+                (1000, 128, 257), (333, 36, 24), (200, 50, 40),
+                (131, 64, 33)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d,k", [(513, 32, 8), (1000, 64, 16),
-                                   (256, 128, 4), (300, 96, 70),
-                                   (4096, 896, 256)])
+@pytest.mark.parametrize("n,d,k", ASSIGN_CASES)
 def test_router_assign_kernel_matches_plain(cuda, dtype, n, d, k):
     """Same argmin except where the two best distances lie within 1e-5
     of the distance scale (summation orders differ); min d2 likewise."""
@@ -261,6 +326,44 @@ def test_router_assign_kernel_matches_plain(cuda, dtype, n, d, k):
     assert bool((gap[differ] <= 1e-5 * scale).all())
     assert float(differ.float().mean()) <= 1e-3
     torch.testing.assert_close(d2, pd2, atol=1e-5 * scale, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,k", [(1000, 64, 16), (300, 96, 300)])
+def test_router_assign_ties_go_to_the_first_index(cuda, dtype, n, d, k):
+    """Small integers: every product and sum is exact in TF32, bf16 and
+    f32, so the distances are exact and many tie; the argmin is numpy's
+    (the first of equal minima), and a repeated centroid never wins."""
+    from repro_torch.kernels.router_assign import router_assign
+    rng = np.random.default_rng(9)
+    z = rng.integers(-2, 3, (n, d))
+    c = rng.integers(-1, 2, (k, d))
+    c[k // 2] = c[1]                          # an exact duplicate
+    d2 = ((z[:, None, :] - c[None]) ** 2).sum(-1)
+    a, m = router_assign(torch.tensor(z, dtype=dtype, device=cuda),
+                         torch.tensor(c, dtype=dtype, device=cuda))
+    torch.cuda.synchronize()
+    assert np.array_equal(a.cpu().numpy(), d2.argmin(-1))
+    assert np.array_equal(m.cpu().numpy(), d2.min(-1).astype(np.float32))
+    assert not bool((a == k // 2).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_router_assign_nan_row_gets_index_0_and_relaunch_is_exact(cuda,
+                                                                  dtype):
+    from repro_torch.kernels.router_assign import router_assign
+    z, c = (x.to(cuda, dtype) for x in _randn(10, (300, 128), (20, 128)))
+    z[7] = float("nan")
+    a, m = router_assign(z, c)
+    a2, m2 = router_assign(z, c)
+    torch.cuda.synchronize()
+    assert int(a[7]) == 0 and not bool(torch.isfinite(m[7]))
+    pa, _ = ref.router_assign_ref(z, c)
+    rows = torch.arange(300, device=cuda) != 7
+    assert float((a != pa)[rows].float().mean()) <= 1e-3
+    assert torch.equal(a, a2) and torch.equal(m, m2)
 
 
 @pytest.mark.cuda
@@ -391,8 +494,9 @@ def test_expert_gemm_kernel_matches_plain(cuda, dtype, e, c, d, f):
 @pytest.mark.cuda
 def test_bf16_tensor_core_kernels_raise_on_a_misaligned_base(cuda):
     """TMA loads from 16-byte aligned addresses only, and the bf16 paths
-    have no other kernel: a contiguous view that starts 2 bytes into its
-    storage raises instead of running elsewhere."""
+    (and router_assign's f32 one) have no other kernel: a contiguous view
+    that starts one element into its storage raises instead of running
+    elsewhere."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention_bwd import (
         flash_attention_dkv, flash_attention_dq, flash_attention_lse)
@@ -418,6 +522,14 @@ def test_bf16_tensor_core_kernels_raise_on_a_misaligned_base(cuda):
     with pytest.raises(RuntimeError, match="16-byte aligned"):
         expert_gemm(xe, w)
     assert expert_gemm.launches == before
+    from repro_torch.kernels.router_assign import router_assign
+    for dtype in (torch.float32, torch.bfloat16):
+        z = torch.zeros(1 + 64 * 64, device=cuda,
+                        dtype=dtype)[1:].view(64, 64)
+        before = router_assign.launches
+        with pytest.raises(RuntimeError, match="16-byte aligned"):
+            router_assign(z, torch.zeros(4, 64, device=cuda, dtype=dtype))
+        assert router_assign.launches == before
 
 
 @pytest.mark.cuda
