@@ -10,19 +10,20 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, in parallel) and prints the build time and ptxas's report
    (each entry function's registers, shared memory, spills).  The
-   machine code of the three sources with a tensor-core bf16 path
-   (``moe_gmm``, ``flash_attention``, ``flash_attention_bwd``) must hold
-   wgmma (HGMMA) and TMA loads (UTMALDG).
+   machine code of the sources with a tensor-core path (``moe_gmm``,
+   ``flash_attention``, ``flash_attention_bwd``, ``router_assign``,
+   ``ssd_scan``, ``ssd_scan_bwd``) must hold wgmma (HGMMA) and TMA loads
+   (UTMALDG).
 2. Kernels against their plain PyTorch versions on the card, in bf16 and
    f32, at the main paths' shapes and at others: flash attention and
    flash decode (serving), the forward that writes the LSE rows, the
    dK/dV and dQ backward kernels and the k-means assignment (training),
-   the SSD scan (Mamba2, with its final state) and the expert GEMM
-   (token MoE).  Times each kernel, its plain version and one PyTorch
-   call as a yardstick where one computes the same function.  Ragged
-   bf16 shapes reach each edge of the tensor-core tilings; two launches
-   of each bf16 backward kernel on the same inputs must give the same
-   bits.
+   the SSD scan (Mamba2, with its final state and chunk-start states)
+   and its backward, and the expert GEMM (token MoE) and its dX and dW.
+   Times each kernel, its plain version and one PyTorch call as a
+   yardstick where one computes the same function.  Ragged shapes reach
+   each edge of the tensor-core tilings; two launches of each backward
+   kernel on the same inputs must give the same bits.
 3. Serving at full width: ``dipaco-150m`` (12 blocks, d 896, vocab
    32000) in bf16 with ``attn_impl="pallas"``, 4 random paths and a
    discriminative router; ``PathServingEngine.generate`` serves 8 corpus
@@ -48,8 +49,22 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    as often as its blocks need it.  Then ``prefill`` and 16 decode steps
    through the kernels against the plain path, in f32 and bf16.
 
-It prints one ``{"kernels": [...]}`` line before the card's line, and
-the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+6. Training the SSM and token-MoE families at full width, in bf16 with
+   ``attn_impl="pallas"`` and remat ``"full"``: ``make_trainer(backend=
+   "vector")`` on synthetic documents of 1024 tokens, 2 phases of 2 inner
+   steps, for ``mamba2-1.3b`` as a 2-path flat DiPaCo cut to 24 of its
+   48 blocks (batch 4 a worker; 48 and 36 do not fit 80 GB with the
+   trainer's state) and ``qwen2-moe-a2.7b`` cut to 2 of its 24 blocks, one worker
+   (batch 4).  Each phase's mean loss must be finite and fall;
+   the SSD scan and its backward, the expert GEMM and its dX and dW, and
+   the attention's LSE forward, dK/dV and dQ must launch as often as the
+   blocks and steps need (remat's recompute included).  One inner step's
+   gradients through the kernels against the plain path's, leaf by
+   leaf, 4 blocks deep, in f32 and bf16.
+
+It prints one ``{"kernels": [...]}`` line before the card's line, with
+the backward kernels' rows too, and the last line is ``{"ok": true,
+"device": {...}}``.  Without a CUDA
 device, or without the repository's ``src/`` beside it, it exits
 non-zero and prints no result.
 """
@@ -80,9 +95,11 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
     attention_delta, flash_attention_dkv, flash_attention_dq,
     flash_attention_lse)
-from repro_torch.kernels.moe_gmm import expert_gemm  # noqa: E402
+from repro_torch.core.dipaco import diloco_config, flat_moe_config  # noqa: E402
+from repro_torch.kernels.moe_gmm import (expert_gemm, expert_gemm_dw,  # noqa: E402
+                                         expert_gemm_dx)
 from repro_torch.kernels.router_assign import router_assign  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
 from repro_torch.launch.steps import value_and_grad  # noqa: E402
 from repro_torch.models import api, moe_layer  # noqa: E402
 from repro_torch.models.config import DiPaCoConfig  # noqa: E402
@@ -186,13 +203,15 @@ def randn(gen, *shape, dtype):
 
 
 def tensor_core_sass() -> None:
-    """The bf16 paths of the attention kernels and expert_gemm, and both
+    """The bf16 paths of the attention kernels, expert_gemm and the SSD
+    scan (its three passes, and the backward's chunk states), and both
     paths of router_assign, run on wgmma fed by TMA: their machine code
     must hold both instructions (HGMMA, UTMALDG).  flash_decode stages
     K and V by TMA (UTMALDG) or bulk copies (UBLKCP)."""
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     need = {name: (("HGMMA",), ("UTMALDG",)) for name in (
-        "moe_gmm", "flash_attention", "flash_attention_bwd", "router_assign")}
+        "moe_gmm", "flash_attention", "flash_attention_bwd", "router_assign",
+        "ssd_scan", "ssd_scan_bwd")}
     need["decode_attention"] = (("UTMALDG", "UBLKCP"),)
     for name, groups in need.items():
         sass = subprocess.run([str(cuobjdump), "-sass",
@@ -633,41 +652,77 @@ def ssd_inputs(gen, b, s, h, p, g, n, dtype, pad=0):
 
 def ssd_work(x, dt, a, bm, cm, chunk) -> tuple:
     """(bytes, operations) of one scan: every input read once, y and the
-    f32 state written once; per chunk the causal half of the scores
-    (L(L+1)/2 pairs, 2N each) and of scores x values (2P each), and the
-    inter-chunk output and state update (2LPN each)."""
+    f32 final state written once; per chunk the causal half of C B^T once
+    per group (L(L+1)/2 pairs, 2N each) and, per head, of the scores
+    times x (2P each) and the chunk state and inter-chunk output (2LPN
+    each)."""
     b, s, h, p = x.shape
-    n = bm.shape[-1]
-    L = chunk
-    ops = b * h * (s // L) * (L * (L + 1) * (n + p) + 4 * L * p * n)
+    g, n = bm.shape[2], bm.shape[3]
+    L, nc = chunk, s // chunk
+    ops = b * nc * (g * L * (L + 1) * n + h * (L * (L + 1) * p
+                                               + 4 * L * p * n))
     return nbytes(x, dt, a, bm, cm, x) + b * h * p * n * 4, float(ops)
 
 
+def ssd_bwd_work(x, dt, a, bm, cm, chunk) -> tuple:
+    """(bytes, operations) of one backward without a final-state gradient
+    (as training calls it): x, dt, A, B, C, dy and the start states read
+    once, dx, ddt, dA, dB, dC written once; per chunk C B^T once per group and, per head, dy xdt^T
+    and the products into dC, dB, dxdt over the causal half, and the
+    four state products (2LPN each)."""
+    b, s, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    L, nc = chunk, s // chunk
+    ops = b * nc * (g * L * (L + 1) * n + h * (L * (L + 1) * (p + 2 * n + p)
+                                               + 8 * L * p * n))
+    states = b * nc * h * p * n * 4
+    return 2 * nbytes(x, dt, a, bm, cm) + nbytes(x) + states, float(ops)
+
+
+# (B, S, H, P, G, N, chunk, padded tail): a full-width prefill (8 chunks),
+# the routing prefix of the serving path (chunk = S = 32), phase 6's
+# training shape (B4 S1024), a ragged length (1000 tokens padded to
+# 1024), a 6-token prompt; then the edges of the
+# bf16 tensor-core passes: G = H, chunk 32 / 64 / 100 / 256 (a chunk of 64
+# + 36 tokens), each P and N
+SSD_CASES = [(8, 2048, 64, 64, 1, 128, 256, 0), (8, 32, 64, 64, 1, 128, 32, 0),
+             (4, 1024, 64, 64, 1, 128, 256, 0),
+             (8, 1024, 64, 64, 1, 128, 256, 24), (8, 6, 64, 64, 1, 128, 6, 0),
+             (2, 96, 4, 32, 4, 64, 32, 0), (2, 300, 8, 64, 8, 32, 100, 0),
+             (1, 768, 16, 32, 1, 128, 256, 0), (2, 256, 16, 64, 2, 64, 64, 0),
+             (3, 64, 4, 32, 2, 32, 64, 0)]
+
+
 def check_ssd_scan(gen) -> dict:
-    # (B, S, H, P, G, N, chunk, padded tail): a full-width prefill (8
-    # chunks), the routing prefix of the serving path (chunk = S = 32), a
-    # ragged length (1000 tokens padded to 1024), a 6-token prompt
-    cases = [(8, 2048, 64, 64, 1, 128, 256, 0), (8, 32, 64, 64, 1, 128, 32, 0),
-             (8, 1024, 64, 64, 1, 128, 256, 24), (8, 6, 64, 64, 1, 128, 6, 0)]
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for b, s, h, p, g, n, chunk, pad in cases:
+        for b, s, h, p, g, n, chunk, pad in SSD_CASES:
             x, dt, a, bm, cm = ssd_inputs(gen, b, s, h, p, g, n, dtype, pad)
-            y, state = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+            y, state, starts = ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                        states=True)
             torch.cuda.synchronize()
             py, pstate = ref.ssd_scan_ref(x, dt, a, bm, cm, chunk=chunk)
             err = (y.float() - py.float()).abs().max().item()
             serr = (state - pstate).abs().max().item()
+            # the last chunk's start state: the final state of the others
+            c = s // chunk - 1
+            _, want = ref.ssd_scan_ref(*(t[:, :c * chunk] for t in (x, dt)),
+                                       a, bm[:, :c * chunk],
+                                       cm[:, :c * chunk], chunk=chunk) \
+                if c else (None, torch.zeros_like(state))
+            start_err = (starts[:, c] - want).abs().max().item()
             scale = max(1.0, py.float().abs().max().item())
             sscale = max(1.0, pstate.abs().max().item())
             tol = TOL[dtype] * (scale if dtype == torch.float32 else 1.0)
             row = {"shape": [b, s, h, p, g, n], "chunk": chunk, "pad": pad,
                    "dtype": str(dtype), "max_abs_err": err,
-                   "state_max_abs_err": serr, "y_scale": scale,
-                   "tol": tol, "state_tol": TOL[torch.float32] * sscale}
+                   "state_max_abs_err": serr, "start_max_abs_err": start_err,
+                   "y_scale": scale, "tol": tol,
+                   "state_tol": TOL[torch.float32] * sscale}
             rows.append(row)
             print(f"[ssd_scan] {row}")
             assert err <= row["tol"] and serr <= row["state_tol"], row
+            assert start_err <= row["state_tol"], row
     main = ssd_timings(gen, 8, 32, 32)
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -679,19 +734,117 @@ def check_ssd_scan(gen) -> dict:
 
 
 def ssd_timings(gen, b, s, chunk) -> dict:
-    """bf16 at mamba2-1.3b's widths (H64 P64 G1 N128)."""
+    """bf16 at mamba2-1.3b's widths (H64 P64 G1 N128), with both bounds."""
     dtype = torch.bfloat16
     args = ssd_inputs(gen, b, s, 64, 64, 1, 128, dtype)
     y, state = ssd_scan(*args, chunk=chunk)
     py, pstate = ref.ssd_scan_ref(*args, chunk=chunk)
-    bound_ms, bound_by = bound(*ssd_work(*args, chunk), dtype)
+    n_bytes, n_ops = ssd_work(*args, chunk)
+    bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
     return {"shape": [b, s, 64, 64, 1, 128], "chunk": chunk, "dtype": "bf16",
             "max_abs_err": (y.float() - py.float()).abs().max().item(),
             "state_max_abs_err": (state - pstate).abs().max().item(),
             "ms": time_ms(lambda: ssd_scan(*args, chunk=chunk)),
             "plain_ms": time_ms(lambda: ref.ssd_scan_ref(*args, chunk=chunk),
                                 10),
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "ops_bound_ms": n_ops / PEAK_OPS_PER_S[dtype] * 1e3,
+            "gflop": n_ops / 1e9, "mbytes": n_bytes / 1e6,
+            "library_ms": None}
+
+
+# (B, S, H, P, G, N, chunk, padded tail, final-state gradient): phase 6's
+# training shape of mamba2-1.3b (B4 S1024), the same at a shorter length,
+# and the edges
+SSD_BWD_CASES = [(4, 1024, 64, 64, 1, 128, 256, 0, False),
+                 (2, 512, 64, 64, 1, 128, 256, 0, False),
+                 (2, 1024, 16, 64, 1, 128, 256, 24, True),
+                 (2, 96, 4, 32, 4, 64, 32, 0, True),
+                 (2, 300, 8, 64, 8, 32, 100, 0, False),
+                 (2, 256, 16, 64, 2, 64, 64, 0, True),
+                 (3, 64, 4, 32, 2, 32, 64, 0, False),
+                 (2, 6, 4, 64, 1, 128, 6, 0, True)]
+# the backward against its plain version, relative to each gradient's
+# largest value: f32 by summation order and the exponents of the segment
+# differences (|cum| reaches about 2100 at A = -64 over 256 tokens, about
+# 1.3e-4 lost in each exponent), which ddt and dA carry through the
+# reverse cumsum of dcum times A: 1e-3 for those two, 1e-4 for the rest;
+# bf16 by one rounding of the bf16 gradients, and of the scores
+# (dy.x) dt e^{cum_l - cum_s} and (C.B) e^{cum_l - cum_s} before their
+# products on the tensor cores (tests/test_torch_ssd_rounding.py)
+SSD_BWD_TOL = {torch.float32: {"dx": 1e-4, "ddt": 1e-3, "da": 1e-3,
+                               "dB": 1e-4, "dC": 1e-4},
+               torch.bfloat16: dict.fromkeys(("dx", "ddt", "da", "dB", "dC"),
+                                             2e-2)}
+
+
+def check_ssd_scan_bwd(gen) -> dict:
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, s, h, p, g, n, chunk, pad, final in SSD_BWD_CASES:
+            x, dt, a, bm, cm = ssd_inputs(gen, b, s, h, p, g, n, dtype, pad)
+            dy = randn(gen, b, s, h, p, dtype=dtype)
+            ds = randn(gen, b, h, p, n, dtype=torch.float32) if final \
+                else None
+            _, _, starts = ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                    states=True)
+            got = ssd_scan_bwd(x, dt, a, bm, cm, dy, ds, starts, chunk=chunk)
+            torch.cuda.synchronize()
+            want = ref.ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, ds,
+                                        chunk=chunk)
+            errs = {k: rel_err(u, v) for k, u, v in
+                    zip(("dx", "ddt", "da", "dB", "dC"), got, want)}
+            row = {"shape": [b, s, h, p, g, n], "chunk": chunk, "pad": pad,
+                   "final_state_grad": final, "dtype": str(dtype),
+                   "grad_rel_err": errs, "tol": SSD_BWD_TOL[dtype]}
+            rows.append(row)
+            print(f"[ssd_scan_bwd] {row}")
+            assert all(errs[k] <= SSD_BWD_TOL[dtype][k] for k in errs), row
+    return {"name": "ssd_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            "replaces": "none: the TPU package differentiates ssd_chunked "
+                        "(src/repro/models/ssm.py:73); backward of "
+                        "src/repro/kernels/ssd_scan.py:61",
+            "launches": None, **ssd_bwd_timings(gen, 4, 1024, 256),
+            "library_call": "none: no one PyTorch call computes the SSD "
+                            "backward (plain_ms is the yardstick)",
+            "cases": rows}
+
+
+def ssd_bwd_timings(gen, b, s, chunk) -> dict:
+    """bf16 at mamba2-1.3b's training shape (B4 S1024, H64 P64 G1 N128),
+    and two launches on the same inputs, which must give the same bits."""
+    dtype = torch.bfloat16
+    x, dt, a, bm, cm = ssd_inputs(gen, b, s, 64, 64, 1, 128, dtype)
+    dy = randn(gen, b, s, 64, 64, dtype=dtype)
+    _, _, starts = ssd_scan(x, dt, a, bm, cm, chunk=chunk, states=True)
+    one = ssd_scan_bwd(x, dt, a, bm, cm, dy, None, starts, chunk=chunk)
+    two = ssd_scan_bwd(x, dt, a, bm, cm, dy, None, starts, chunk=chunk)
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for u, v in zip(one, two))
+    print(f"[ssd_scan_bwd] bit-identical relaunch: {same}")
+    assert same
+    want = ref.ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, None, chunk=chunk)
+    errs = {k: rel_err(u, v) for k, u, v in
+            zip(("dx", "ddt", "da", "dB", "dC"), one, want)}
+    print(f"[ssd_scan_bwd] timed shape grad_rel_err: {errs}")
+    assert all(errs[k] <= SSD_BWD_TOL[dtype][k] for k in errs), errs
+    n_bytes, n_ops = ssd_bwd_work(x, dt, a, bm, cm, chunk)
+    bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
+    return {"shape": [b, s, 64, 64, 1, 128], "chunk": chunk, "dtype": "bf16",
+            "max_abs_err": max((u.float() - v.float()).abs().max().item()
+                               for u, v in zip(one, want)),
+            "grad_rel_err": errs, "tol": SSD_BWD_TOL[dtype],
+            "bit_identical_relaunch": same,
+            "ms": time_ms(lambda: ssd_scan_bwd(x, dt, a, bm, cm, dy, None,
+                                               starts, chunk=chunk), 20),
+            "plain_ms": time_ms(lambda: ref.ssd_scan_bwd_ref(
+                x, dt, a, bm, cm, dy, None, chunk=chunk), 5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "ops_bound_ms": n_ops / PEAK_OPS_PER_S[dtype] * 1e3,
+            "library_ms": None}
 
 
 def check_expert_gemm(gen) -> dict:
@@ -745,6 +898,87 @@ def gemm_timings(xe, w, out, plain) -> dict:
             "library_ms": time_ms(lambda: torch.bmm(xe, w))}
 
 
+# (E, C, d, f): the token MoE's training products of qwen2-moe-a2.7b
+# (4 groups of capacity 85 folded into C 340; gate/up d 2048 -> f 1408,
+# down the other way), timed in bf16; then the tiling's edges: C 1360,
+# the ragged E2 C33 d50 f30 (the CUDA-core kernel), C 1, d and f not
+# multiples of 64 (MN-major B tiles of 64 + a tail)
+GEMM_BWD_TIMED = [(60, 340, 2048, 1408), (60, 340, 1408, 2048)]
+GEMM_BWD_CASES = GEMM_BWD_TIMED + [(60, 1360, 2048, 1408), (2, 33, 50, 30),
+                                   (3, 13, 200, 72), (2, 1, 136, 64),
+                                   (2, 300, 200, 136), (2, 90, 72, 200)]
+
+
+def check_expert_gemm_bwd(gen) -> list:
+    rows, timed = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for e, c, d, f in GEMM_BWD_CASES:
+            # dX = dY W^T and dW = X^T dY both about N(0, 1/4): below 4,
+            # where TOL holds in bf16, and large against TOL
+            xe = randn(gen, e, c, d, dtype=torch.float32).mul_(
+                c ** -0.5).to(dtype)
+            w = randn(gen, e, d, f, dtype=torch.float32).mul_(
+                f ** -0.5).to(dtype)
+            dy = randn(gen, e, c, f, dtype=torch.float32).mul_(0.5).to(dtype)
+            dx, dw = expert_gemm_dx(dy, w, xe), expert_gemm_dw(xe, dy, w)
+            torch.cuda.synchronize()
+            pdx, pdw = ref.expert_gemm_bwd_ref(xe, w, dy)
+            errs = {"dx": (dx.float() - pdx.float()).abs().max().item(),
+                    "dw": (dw.float() - pdw.float()).abs().max().item()}
+            std = {"dx": pdx.float().std().item(),
+                   "dw": pdw.float().std().item()}
+            row = {"shape": [e, c, d, f], "dtype": str(dtype),
+                   "max_abs_err": errs, "plain_std": std, "tol": TOL[dtype]}
+            rows.append(row)
+            print(f"[expert_gemm_bwd] {row}")
+            assert max(errs.values()) <= TOL[dtype], row
+            assert min(std.values()) > 0.2, row
+            if dtype == torch.bfloat16 and (e, c, d, f) in GEMM_BWD_TIMED:
+                timed[(e, c, d, f)] = gemm_bwd_timings(xe, w, dy, errs)
+    out = []
+    for name, key in (("expert_gemm_dx", "dx"), ("expert_gemm_dw", "dw")):
+        shape = GEMM_BWD_TIMED[0]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+            "replaces": "none: the TPU package differentiates the expert "
+                        "einsum; backward of src/repro/kernels/moe_gmm.py:38",
+            "launches": None, "shape": list(shape), "dtype": "bf16",
+            **timed[shape][key],
+            "down_projection": timed[GEMM_BWD_TIMED[1]][key],
+            "library_call": "torch.bmm(dy, w^T)" if key == "dx"
+                            else "torch.bmm(x^T, dy)"})
+    out[0]["cases"] = rows
+    return out
+
+
+def gemm_bwd_timings(xe, w, dy, errs) -> dict:
+    """dX and dW in bf16: each kernel, the plain backward (which computes
+    both), the bound, and one torch.bmm on the same inputs; two launches
+    of each give the same bits."""
+    e, c, d = xe.shape
+    f = w.shape[-1]
+    dx, dw = expert_gemm_dx(dy, w, xe), expert_gemm_dw(xe, dy, w)
+    same = bool(torch.equal(dx, expert_gemm_dx(dy, w, xe))
+                and torch.equal(dw, expert_gemm_dw(xe, dy, w)))
+    print(f"[expert_gemm_bwd] bit-identical relaunch: {same}")
+    assert same
+    plain_ms = time_ms(lambda: ref.expert_gemm_bwd_ref(xe, w, dy), 10)
+    wt, xt = w.transpose(1, 2), xe.transpose(1, 2)
+    out = {}
+    for key, fn, lib, n_bytes in (
+            ("dx", lambda: expert_gemm_dx(dy, w, xe),
+             lambda: torch.bmm(dy, wt), nbytes(dy, w, xe)),
+            ("dw", lambda: expert_gemm_dw(xe, dy, w),
+             lambda: torch.bmm(xt, dy), nbytes(xe, dy, w))):
+        bound_ms, bound_by = bound(n_bytes, 2.0 * e * c * d * f, xe.dtype)
+        out[key] = {"max_abs_err": errs[key], "ms": time_ms(fn),
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": time_ms(lib),
+                    "bit_identical_relaunch": same}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: serving at full width
 # ---------------------------------------------------------------------------
@@ -766,7 +1000,7 @@ class CheckedEngine(PathServingEngine):
 
 KERNELS = (flash_attention, flash_decode, flash_attention_lse,
            flash_attention_dkv, flash_attention_dq, router_assign, ssd_scan,
-           expert_gemm)
+           ssd_scan_bwd, expert_gemm, expert_gemm_dx, expert_gemm_dw)
 
 
 def reset_counts():
@@ -1202,6 +1436,119 @@ def train_grad_parity(cfg, dtype: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: training the SSM and token-MoE families
+# ---------------------------------------------------------------------------
+# (name, DiPaCo config, batch a worker, blocks or None for full depth):
+# mamba2-1.3b as a 2-path flat DiPaCo cut to 24 of its 48 blocks, widths
+# unchanged: the trainer keeps two workers' bf16 weights and f32 AdamW
+# moments, two paths' weights and their outer momentum, and its
+# functional inner step builds the new (W, ...) weights and moments
+# beside the old ones with one worker's f32 gradients and moments; that
+# passed the card's 80 GB at 48 blocks and at 36;
+# qwen2-moe-a2.7b cut to 2 of 24 blocks (full depth needs about 170 GB for
+# its weights and AdamW moments alone), one worker
+FAMILY_TRAIN = (("mamba2-1.3b", flat_moe_config(2, inner_steps=2), 4, 24),
+                ("qwen2-moe-a2.7b", diloco_config(1, inner_steps=2), 4, 2))
+FAMILY_TAU, FAMILY_PHASES, FAMILY_GRAD_DEPTH = 2, 2, 4
+
+
+def train_family(name: str, dcfg, batch: int, depth) -> dict:
+    """make_trainer(backend="vector") at full width (bf16, pallas, remat
+    "full"), 2 phases of 2 inner steps on synthetic 1024-token documents
+    sharded by domain; the loss must fall and every kernel of the path
+    launch as its blocks and steps need."""
+    cfg = get_config(name).replace(attn_impl="pallas", dtype="bfloat16")
+    if depth is not None:
+        cfg = cfg.replace(num_layers=depth)
+    assert cfg.remat and cfg.remat_policy == "full", cfg
+    t_start = time.perf_counter()
+    paths = int(np.prod(dcfg.levels))
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
+                             seq_len=DOC_LEN, seed=0)
+    docs, domains = corpus.sample_documents(16 * paths, seed=1,
+                                            return_domains=True)
+    ds = shard_documents(docs, domains % paths, paths)
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    base = api.init_model(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(base))
+    tr = make_trainer(cfg, dcfg, ds, backend="vector", device="cuda",
+                      base_params=base, batch_size=batch, peak_lr=2e-3,
+                      warmup=1, total_steps=FAMILY_PHASES * FAMILY_TAU)
+    del base
+    timer = tr._step_fn = TimedStep(tr._step_fn)
+    reset_counts()
+    phases = []
+    for _ in range(FAMILY_PHASES):
+        m = tr.run_phase()
+        phases.append({"mean_loss": m.mean_loss, "final_loss": m.final_loss})
+    torch.cuda.synchronize()
+    launched = counts()
+    W = tr.num_workers
+    steps = W * FAMILY_TAU * FAMILY_PHASES
+    blocks = list(cfg.pattern) * cfg.pattern_repeats
+    attn = sum(b.mixer == "attn" for b in blocks)
+    mamba = sum(b.mixer == "mamba" for b in blocks)
+    moe = sum(b.mlp == "moe" for b in blocks)
+    gemms = 3 if cfg.mlp_type in ("swiglu", "geglu") else 2
+    # remat: each block's forward runs twice a step (forward, recompute)
+    want = {"ssd_scan": 2 * mamba * steps, "ssd_scan_bwd": mamba * steps,
+            "expert_gemm": 2 * gemms * moe * steps,
+            "expert_gemm_dx": gemms * moe * steps,
+            "expert_gemm_dw": gemms * moe * steps,
+            "flash_attention_lse": 2 * attn * steps,
+            "flash_attention_dkv": attn * steps,
+            "flash_attention_dq": attn * steps}
+    out = {"blocks": cfg.num_layers, "workers": W, "paths": paths,
+           "batch": batch, "params_per_path": n_params, "phases": phases,
+           "inner_step_s_per_worker": float(np.median(timer.seconds)) / W,
+           "inner_step_s_all": timer.seconds,
+           "tokens_per_s": batch * DOC_LEN * W / float(np.median(
+               timer.seconds)),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launched, "expected_launches": want,
+           "seconds": time.perf_counter() - t_start}
+    print(f"[train {name}] {out}")
+    losses = [ph["mean_loss"] for ph in phases]
+    assert all(np.isfinite(losses)) and losses[1] < losses[0], out
+    assert {k: launched[k] for k in want} == want, (launched, want)
+    del tr
+    free_memory()
+    return out
+
+
+def family_grad_parity(name: str, dtype: str) -> dict:
+    """One inner step's loss gradient at full width, 4 blocks deep,
+    through the kernels and through the plain path, leaf by leaf; the MoE
+    router teacher-forced (a near-tie would flip a token's experts)."""
+    cfg = get_config(name).replace(dtype=dtype, num_layers=FAMILY_GRAD_DEPTH)
+    params = api.init_model(cfg, seed=11, device="cuda")
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
+                             seq_len=DOC_LEN, seed=5)
+    batch = {"tokens": torch.as_tensor(corpus.sample_documents(2),
+                                       device="cuda")}
+    grads = {}
+    with ForcedExperts() as choices:
+        for impl, run in (("pallas", "kernels"), ("full", "plain")):
+            choices.run = run
+            loss, _, g = value_and_grad(
+                params, cfg.replace(attn_impl=impl), batch)
+            grads[impl] = (float(loss), tree_leaves(g))
+    errs = [float((a.float() - b.float()).norm() / b.float().norm()
+                  .clamp_min(1e-30))
+            for a, b in zip(grads["pallas"][1], grads["full"][1])]
+    out = {"blocks": cfg.num_layers, "loss_kernels": grads["pallas"][0],
+           "loss_plain": grads["full"][0], "leaves": len(errs),
+           "max_rel_err": max(errs), "tol": TRAIN_GRAD_TOL[dtype]}
+    print(f"[train grads {name}] {dtype}: {out}")
+    assert all(float(b.float().norm()) > 0 for b in grads["pallas"][1])
+    assert max(errs) <= TRAIN_GRAD_TOL[dtype], out
+    del params, grads
+    free_memory()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1233,7 +1580,8 @@ def main() -> int:
                *training_attention_timings(gen, TRAIN_BATCH, DOC_LEN, 16,
                                            64),
                check_router_assign(gen), check_ssd_scan(gen),
-               check_expert_gemm(gen)]
+               check_ssd_scan_bwd(gen), check_expert_gemm(gen),
+               *check_expert_gemm_bwd(gen)]
     phase_s["kernels"] = time.perf_counter() - t0
     print(json.dumps({"phase2_kernels": kernels}), flush=True)
     print(f"[phase] kernels: {phase_s['kernels']:.1f} s", flush=True)
@@ -1270,8 +1618,19 @@ def main() -> int:
         phase_s[f"serve {name}"] = time.perf_counter() - t0
         print(f"[phase] serve {name}: {phase_s[f'serve {name}']:.1f} s")
 
+    for name, dcfg, batch, depth in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        families[name]["train"] = train_family(name, dcfg, batch, depth)
+        families[name]["train_grad_parity"] = {
+            dt: family_grad_parity(name, dt) for dt in ("float32", "bfloat16")}
+        phase_s[f"train {name}"] = time.perf_counter() - t0
+        print(f"[phase] train {name}: {phase_s[f'train {name}']:.1f} s",
+              flush=True)
+
     mamba, moe = (families[n]["serve"] for n in ("mamba2-1.3b",
                                                   "qwen2-moe-a2.7b"))
+    trained_ssm = families["mamba2-1.3b"]["train"]["launches"]
+    trained_moe = families["qwen2-moe-a2.7b"]["train"]["launches"]
     for k in kernels:
         if k["name"] in ("flash_attention", "flash_decode"):
             k["launches"] = runs["plain"]["launches"][k["name"]]
@@ -1280,12 +1639,22 @@ def main() -> int:
         elif k["name"] == "ssd_scan":
             k["launches"] = mamba["plain"]["launches"]["ssd_scan"]
             k["launches_reroute"] = mamba["reroute"]["launches"]["ssd_scan"]
+            k["launches_train"] = trained_ssm["ssd_scan"]
+        elif k["name"] == "ssd_scan_bwd":
+            k["launches"] = trained_ssm["ssd_scan_bwd"]
         elif k["name"] == "expert_gemm":
             k["launches"] = moe["plain"]["launches"]["expert_gemm"]
             k["launches_reroute"] = moe["reroute"]["launches"]["expert_gemm"]
+            k["launches_train"] = trained_moe["expert_gemm"]
+        elif k["name"] in ("expert_gemm_dx", "expert_gemm_dw"):
+            k["launches"] = trained_moe[k["name"]]
         else:
             k["launches"] = trained["launches"][k["name"]]
     kernels[0]["launches_train"] = trained["launches"]["flash_attention"]
+    for k in kernels:
+        if k["name"] in ("flash_attention_lse", "flash_attention_dkv",
+                         "flash_attention_dq"):
+            k["launches_train_qwen2_moe"] = trained_moe[k["name"]]
     print(f"[phase] seconds: {phase_s}")
 
     summary = {"kernels": kernels}

@@ -2,8 +2,9 @@
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
 // wgmma instructions themselves, and the host-side encoding of TMA tensor
 // maps.  Included by moe_gmm.cu, flash_attention.cu,
-// flash_attention_bwd.cu, router_assign.cu and decode_attention.cu; no
-// kernel here.
+// flash_attention_bwd.cu, router_assign.cu, decode_attention.cu and
+// (through ssd_common.cuh) ssd_scan.cu and ssd_scan_bwd.cu; no kernel
+// here.
 //
 // Tensor maps are encoded on the host with cuTensorMapEncodeTiled, a
 // libcuda function reached through cudaGetDriverEntryPoint, so the

@@ -44,6 +44,18 @@
 // is not 16-byte aligned (a view that starts inside a row) the entry
 // point returns hopper::ERR_MISALIGNED, which the wrapper raises on.
 //
+// The backward (no TPU kernel: the TPU package differentiates the
+// einsum) reuses `gmm_wgmma_kernel` with the operand majors as template
+// parameters, so no transposed copy of w (346 MB at full width) is made:
+// dX = dY W^T (entry `expert_gemm_dx`) reads w as a K-major A (d rows of
+// contiguous f) and dy as the K-major B; dW = X^T dY (`expert_gemm_dw`)
+// takes K = C, dy as an MN-major A (C rows of contiguous f) and x as an
+// MN-major B in 64-column boxes.  Each dW block owns its output tile and
+// walks C in order with f32 sums, so two launches give the same bits.
+// f32 and widths that are not multiples of 8 take `gmm_kernel` with
+// strides.  At qwen2-moe's training products (E60 C340 d2048 f1408) each
+// reads the 346 MB weight or writes its gradient once: bound by bytes.
+//
 // f32 keeps the CUDA-core kernel (`gmm_kernel`): wgmma takes f32 inputs
 // only as TF32, about 3 decimal digits, which would break the f32 bar of
 // 1e-4 against the plain version and the f32 token identity of the
@@ -90,10 +102,19 @@ __device__ __forceinline__ void unpack(const __nv_bfloat16* src, float* dst) {
   }
 }
 
+// out[e] (M x F, row-major) = X[e] (M x K) W[e] (K x F), where element
+// (r, k) of X[e] is x[e xe + r xr + k xk] and (k, f) of W[e] is
+// w[e we + k wk + f wf]: the forward (X = x, W = w), dX (X = dy, W = w^T)
+// and dW (X = x^T, W = dy) with strides, no transposed copy.  VEC: W's
+// rows are contiguous (wf = 1), 16-byte aligned, F a multiple of 16 bytes.
+struct Strides {
+  long xe, xr, xk, we, wk, wf;
+};
+
 template <typename T, int BM, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-           T* __restrict__ out, int C, int D, int F) {
+           T* __restrict__ out, int M, int K, int F, Strides st) {
   constexpr int RM = BM / 16;                 // rows per thread
   constexpr int V = 16 / sizeof(T);           // elements per 16-byte load
   __shared__ float Xs[BM][BK + 1];
@@ -102,8 +123,8 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int rg = tid >> 4, cg = tid & 15;
   const int e = blockIdx.z;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const T* xe = x + (long)e * C * D;
-  const T* we = w + (long)e * D * F;
+  const T* xe = x + e * st.xe;
+  const T* we = w + e * st.we;
 
   float acc[RM][4];
 #pragma unroll
@@ -111,20 +132,21 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < D; k0 += BK) {
+  for (int k0 = 0; k0 < K; k0 += BK) {
     __syncthreads();            // the previous step's tiles are consumed
     for (int i = tid; i < BM * BK; i += THREADS) {
       const int r = i / BK, kk = i - r * BK;
       const int row = m0 + r, k = k0 + kk;
-      Xs[r][kk] = (row < C && k < D) ? to_f(xe[(long)row * D + k]) : 0.f;
+      Xs[r][kk] = (row < M && k < K)
+                      ? to_f(xe[row * st.xr + k * st.xk]) : 0.f;
     }
     if (VEC) {
-      // f % V == 0, so a group of V columns is all inside f or all past it
+      // F % V == 0, so a group of V columns is all inside F or all past it
       for (int i = tid * V; i < BK * BN; i += THREADS * V) {
         const int kk = i / BN, c = i - kk * BN;
         const int k = k0 + kk, col = n0 + c;
-        if (k < D && col < F) {
-          unpack(we + (long)k * F + col, &Ws[kk][c]);
+        if (k < K && col < F) {
+          unpack(we + k * st.wk + col, &Ws[kk][c]);
         } else {
 #pragma unroll
           for (int v = 0; v < V; ++v) Ws[kk][c + v] = 0.f;
@@ -134,7 +156,8 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
       for (int i = tid; i < BK * BN; i += THREADS) {
         const int kk = i / BN, c = i - kk * BN;
         const int k = k0 + kk, col = n0 + c;
-        Ws[kk][c] = (k < D && col < F) ? to_f(we[(long)k * F + col]) : 0.f;
+        Ws[kk][c] = (k < K && col < F)
+                        ? to_f(we[k * st.wk + col * st.wf]) : 0.f;
       }
     }
     __syncthreads();
@@ -152,11 +175,11 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
     }
   }
 
-  T* oe = out + (long)e * C * F;
+  T* oe = out + (long)e * M * F;
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int row = m0 + rg * RM + i;
-    if (row >= C) continue;
+    if (row >= M) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + cg + 16 * j;
@@ -166,28 +189,28 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 template <typename T, int BM>
-int launch(const void* x, const void* w, void* out, int E, int C, int D,
-           int F, cudaStream_t st) {
-  const dim3 grid((F + BN - 1) / BN, (C + BM - 1) / BM, E);
+int launch(const void* x, const void* w, void* out, int E, int M, int K,
+           int F, const Strides& s, cudaStream_t st) {
+  const dim3 grid((F + BN - 1) / BN, (M + BM - 1) / BM, E);
   const int V = 16 / sizeof(T);
-  const bool aligned =
-      F % V == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  if (aligned)
+  const bool vec = s.wf == 1 && s.wk % V == 0 && F % V == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (vec)
     gmm_kernel<T, BM, true><<<grid, THREADS, 0, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(w),
-        static_cast<T*>(out), C, D, F);
+        static_cast<T*>(out), M, K, F, s);
   else
     gmm_kernel<T, BM, false><<<grid, THREADS, 0, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(w),
-        static_cast<T*>(out), C, D, F);
+        static_cast<T*>(out), M, K, F, s);
   return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* x, const void* w, void* out, int E, int C, int D,
-             int F, cudaStream_t st) {
-  if (C <= 32) return launch<T, 16>(x, w, out, E, C, D, F, st);
-  return launch<T, 64>(x, w, out, E, C, D, F, st);
+int dispatch(const void* x, const void* w, void* out, int E, int M, int K,
+             int F, const Strides& s, cudaStream_t st) {
+  if (M <= 32) return launch<T, 16>(x, w, out, E, M, K, F, s, st);
+  return launch<T, 64>(x, w, out, E, M, K, F, s, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -208,20 +231,28 @@ struct GemmPlan {
   static_assert(N * OP * 2 <= STAGES * STAGE, "the epilogue fits the ring");
 };
 
-template <int N, int WGS, int STAGES>
+// D (M x N, M = 64 WGS a block) = A (M x K) B (K x N) per expert, out
+// rows along N: out[e][n][m].  TA = 1: A is stored (K, M) with M
+// contiguous (MN-major), else (M, K) with K contiguous; TB = 1: B is
+// stored (K, N) with N contiguous, in 64-column boxes (N a multiple of
+// 64), else (N, K).  The forward is (TA, TB) = (1, 0) with A = w, B = x;
+// dX (0, 0) with A = w read as (d, f), B = dy; dW (1, 1) with A = dy read
+// as (C, f), B = x read as (C, d).
+template <int N, int WGS, int STAGES, int TA, int TB>
 __global__ void __launch_bounds__(GemmPlan<N, WGS, STAGES>::THREADS)
-gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
-                 const __grid_constant__ CUtensorMap tm_w,
-                 __nv_bfloat16* __restrict__ out, int C, int D, int F) {
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_b,
+                 const __grid_constant__ CUtensorMap tm_a,
+                 __nv_bfloat16* __restrict__ out, int NT, int K, int MT) {
   using P = GemmPlan<N, WGS, STAGES>;
+  static_assert(TB == 0 || N % 64 == 0, "MN-major B in 64-column boxes");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * P::STAGE);
   uint64_t* empty = full + STAGES;
 
   const int e = blockIdx.z;
-  const int c0 = blockIdx.y * N, f0 = blockIdx.x * WM * WGS;
-  const int ktiles = (D + WK - 1) / WK;
+  const int n0 = blockIdx.y * N, m0 = blockIdx.x * WM * WGS;
+  const int ktiles = (K + WK - 1) / WK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -240,18 +271,29 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         const int s = kt % STAGES;
         if (kt >= STAGES) hopper::mbar_wait(&empty[s], (kt / STAGES - 1) & 1);
         uint8_t* a = smem + s * P::STAGE;
+        uint8_t* b = a + WGS * A_BYTES;
         hopper::mbar_expect_tx(&full[s], P::STAGE);
-        for (int g = 0; g < WGS; ++g)
-          hopper::tma_load_3d(a + g * A_BYTES, &tm_w, &full[s], f0 + g * WM,
-                              kt * WK, e);
-        hopper::tma_load_3d(a + WGS * A_BYTES, &tm_x, &full[s], kt * WK, c0,
-                            e);
+        for (int g = 0; g < WGS; ++g) {
+          if (TA)
+            hopper::tma_load_3d(a + g * A_BYTES, &tm_a, &full[s],
+                                m0 + g * WM, kt * WK, e);
+          else
+            hopper::tma_load_3d(a + g * A_BYTES, &tm_a, &full[s], kt * WK,
+                                m0 + g * WM, e);
+        }
+        if (TB) {
+          for (int j = 0; j < N / 64; ++j)
+            hopper::tma_load_3d(b + j * WK * 128, &tm_b, &full[s],
+                                n0 + j * 64, kt * WK, e);
+        } else {
+          hopper::tma_load_3d(b, &tm_b, &full[s], kt * WK, n0, e);
+        }
       }
     }
     return;
   }
 
-  // consumer warpgroup wg: f rows f0 + 64 wg .. + 63
+  // consumer warpgroup wg: M rows m0 + 64 wg .. + 63
   const int wg = warp / 4;
   float acc[N / 2];
 #pragma unroll
@@ -260,17 +302,23 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
     const int s = kt % STAGES;
     hopper::mbar_wait(&full[s], (kt / STAGES) & 1);
     const uint8_t* a = smem + s * P::STAGE;
+    const uint8_t* b = a + WGS * A_BYTES;
     hopper::fence_regs<N / 2>(acc);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < WK / 16; ++kk) {
-      // A: MN-major, 16 d rows of 128 bytes per k16 step
-      const uint64_t da = hopper::make_desc(a + wg * A_BYTES + kk * 2048, 16,
-                                            1024, hopper::SW128);
-      // B: K-major, 32 bytes along the swizzled row per k16 step
-      const uint64_t db = hopper::make_desc(a + WGS * A_BYTES + kk * 32, 16,
-                                            1024, hopper::SW128);
-      hopper::WgmmaSS<N, 1, 0>::run(acc, da, db);
+      // MN-major: 16 K rows of 128 bytes per k16 step (B: LBO between its
+      // 64-column boxes); K-major: 32 bytes along the swizzled row
+      const uint64_t da =
+          TA ? hopper::make_desc(a + wg * A_BYTES + kk * 2048, 16, 1024,
+                                 hopper::SW128)
+             : hopper::make_desc(a + wg * A_BYTES + kk * 32, 16, 1024,
+                                 hopper::SW128);
+      const uint64_t db =
+          TB ? hopper::make_desc(b + kk * 2048, WK * 128, 1024,
+                                 hopper::SW128)
+             : hopper::make_desc(b + kk * 32, 16, 1024, hopper::SW128);
+      hopper::WgmmaSS<N, TA, TB>::run(acc, da, db);
     }
     hopper::wgmma_commit();
     if (kt > 0) {
@@ -284,8 +332,8 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   hopper::fence_regs<N / 2>(acc);
 
   // Every stage has landed and been consumed: once all consumer
-  // warpgroups are done with the ring, it holds D (f x C) staged as out
-  // rows (C x f).
+  // warpgroups are done with the ring, it holds D (M x N) staged as out
+  // rows (N x M).
   asm volatile("bar.sync 1, %0;\n" :: "n"(128 * WGS) : "memory");
   __nv_bfloat16* ot = reinterpret_cast<__nv_bfloat16*>(smem);
   const int fr = wg * WM + (warp % 4) * 16 + lane / 4;
@@ -298,78 +346,110 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
     ot[(c + 1) * P::OP + fr + 8] = __float2bfloat16(acc[4 * j + 3]);
   }
   asm volatile("bar.sync 1, %0;\n" :: "n"(128 * WGS) : "memory");
-  // 16-byte stores along f; F % 8 == 0, so a group of 8 columns is all
-  // inside f or all past it
+  // 16-byte stores along M; MT % 8 == 0, so a group of 8 columns is all
+  // inside M or all past it
   constexpr int G = WM * WGS / 8;      // 16-byte groups per out row
-  __nv_bfloat16* oe = out + (long)e * C * F;
+  __nv_bfloat16* oe = out + (long)e * NT * MT;
   for (int i = threadIdx.x; i < N * G; i += 128 * WGS) {
     const int r = i / G, g = i % G;
-    const int c = c0 + r, f = f0 + g * 8;
-    if (c < C && f < F)
-      *reinterpret_cast<uint4*>(oe + (long)c * F + f) =
+    const int n = n0 + r, m = m0 + g * 8;
+    if (n < NT && m < MT)
+      *reinterpret_cast<uint4*>(oe + (long)n * MT + m) =
           *reinterpret_cast<const uint4*>(ot + r * P::OP + g * 8);
   }
 }
 
-template <int N, int WGS, int STAGES>
-int launch_wgmma(const void* x, const void* w, void* out, int E, int C,
-                 int D, int F, cudaStream_t st) {
-  using P = GemmPlan<N, WGS, STAGES>;
-  CUtensorMap tm_x, tm_w;
-  // x (E, C, D): box of N rows of C by 64 of d; w (E, D, F): 64 d rows by
-  // 64 of f
-  const cuuint64_t xd[3] = {(cuuint64_t)D, (cuuint64_t)C, (cuuint64_t)E};
-  const cuuint64_t xs[2] = {(cuuint64_t)D * 2, (cuuint64_t)C * D * 2};
-  const cuuint32_t xb[3] = {WK, N, 1};
-  const cuuint64_t wd[3] = {(cuuint64_t)F, (cuuint64_t)D, (cuuint64_t)E};
-  const cuuint64_t ws[2] = {(cuuint64_t)F * 2, (cuuint64_t)D * F * 2};
-  const cuuint32_t wb[3] = {WM, WK, 1};
-  int rc = hopper::encode_bf16(&tm_x, x, 3, xd, xs, xb,
-                               CU_TENSOR_MAP_SWIZZLE_128B);
-  if (rc == 0)
-    rc = hopper::encode_bf16(&tm_w, w, 3, wd, ws, wb,
+// A (E, rows, cols) bf16 tensor map with boxes of `box_rows` rows by 64
+// columns, 128-byte swizzle
+inline int encode_3d(CUtensorMap* map, const void* base, int E, int rows,
+                     int cols, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {WK, (cuuint32_t)box_rows, 1};
+  return hopper::encode_bf16(map, base, 3, dims, strides, box,
                              CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The product of one (TA, TB) kind: `a` and `b` are the A and B operands
+// as stored ((E, ar, ac) and (E, br, bc) bf16), out (E, NT, MT).
+template <int N, int WGS, int STAGES, int TA, int TB>
+int launch_wgmma(const void* a, int ar, int ac, const void* b, int br,
+                 int bc, void* out, int E, int NT, int K, int MT,
+                 cudaStream_t st) {
+  using P = GemmPlan<N, WGS, STAGES>;
+  CUtensorMap tm_a, tm_b;
+  // A boxes: 64 x 64; B boxes: N rows by 64 (K-major) or 64 by 64
+  int rc = encode_3d(&tm_a, a, E, ar, ac, WM);
+  if (rc == 0) rc = encode_3d(&tm_b, b, E, br, bc, TB ? WK : N);
   if (rc != 0) return rc;
   // once per instantiation (a thread-safe static)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gmm_wgmma_kernel<N, WGS, STAGES>,
+      gmm_wgmma_kernel<N, WGS, STAGES, TA, TB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::SMEM);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((F + WM * WGS - 1) / (WM * WGS), (C + N - 1) / N, E);
-  gmm_wgmma_kernel<N, WGS, STAGES><<<grid, P::THREADS, P::SMEM, st>>>(
-      tm_x, tm_w, static_cast<__nv_bfloat16*>(out), C, D, F);
+  const dim3 grid((MT + WM * WGS - 1) / (WM * WGS), (NT + N - 1) / N, E);
+  gmm_wgmma_kernel<N, WGS, STAGES, TA, TB><<<grid, P::THREADS, P::SMEM, st>>>(
+      tm_b, tm_a, static_cast<__nv_bfloat16*>(out), NT, K, MT);
   return cudaGetLastError();
 }
 
-// The N of the wgmma tile for C columns: the smallest width that covers C
-// when C <= 256 (one weight stream per expert), else 128 or 256, whichever
-// pads C less.
-int pick_n(int C) {
+// The N of the wgmma tile for NT columns: the smallest width that covers
+// NT when NT <= 256 (one A stream per expert), else 128 or 256,
+// whichever pads NT less; an MN-major B (mn) takes multiples of 64 only.
+int pick_n(int NT, bool mn) {
   constexpr int widths[] = {8, 16, 24, 32, 48, 64, 96, 128, 192, 256};
   for (int n : widths)
-    if (C <= n) return n;
-  const int pad128 = (C + 127) / 128 * 128, pad256 = (C + 255) / 256 * 256;
+    if (NT <= n && (!mn || n % 64 == 0)) return n;
+  const int pad128 = (NT + 127) / 128 * 128, pad256 = (NT + 255) / 256 * 256;
   return pad128 < pad256 ? 128 : 256;
 }
 
 // Up to N 96 (a decode step, the routing prefix) one consumer warpgroup
-// and 4 stages: small blocks, many in flight per SM for the weight
-// stream.  From N 128 two warpgroups share each x tile (a 128 x N block)
-// in 3 stages, two such blocks per SM at N 128.
-int dispatch_wgmma(const void* x, const void* w, void* out, int E, int C,
-                   int D, int F, cudaStream_t st) {
-  switch (pick_n(C)) {
-    case 8: return launch_wgmma<8, 1, 4>(x, w, out, E, C, D, F, st);
-    case 16: return launch_wgmma<16, 1, 4>(x, w, out, E, C, D, F, st);
-    case 24: return launch_wgmma<24, 1, 4>(x, w, out, E, C, D, F, st);
-    case 32: return launch_wgmma<32, 1, 4>(x, w, out, E, C, D, F, st);
-    case 48: return launch_wgmma<48, 1, 4>(x, w, out, E, C, D, F, st);
-    case 64: return launch_wgmma<64, 1, 4>(x, w, out, E, C, D, F, st);
-    case 96: return launch_wgmma<96, 1, 4>(x, w, out, E, C, D, F, st);
-    case 128: return launch_wgmma<128, 2, 3>(x, w, out, E, C, D, F, st);
-    case 192: return launch_wgmma<192, 2, 3>(x, w, out, E, C, D, F, st);
-    default: return launch_wgmma<256, 2, 3>(x, w, out, E, C, D, F, st);
+// and 4 stages: small blocks, many in flight per SM for the A stream.
+// From N 128 two warpgroups share each B tile (a 128 x N block) in 3
+// stages, two such blocks per SM at N 128.
+template <int TA, int TB>
+int dispatch_wgmma(const void* a, int ar, int ac, const void* b, int br,
+                   int bc, void* out, int E, int NT, int K, int MT,
+                   cudaStream_t st) {
+#define GMM_ARGS a, ar, ac, b, br, bc, out, E, NT, K, MT, st
+  switch (pick_n(NT, TB == 1)) {
+    case 64: return launch_wgmma<64, 1, 4, TA, TB>(GMM_ARGS);
+    case 128: return launch_wgmma<128, 2, 3, TA, TB>(GMM_ARGS);
+    case 192: return launch_wgmma<192, 2, 3, TA, TB>(GMM_ARGS);
+    case 256: return launch_wgmma<256, 2, 3, TA, TB>(GMM_ARGS);
+    default: break;
   }
+  if constexpr (TB == 0) {
+    switch (pick_n(NT, false)) {
+      case 8: return launch_wgmma<8, 1, 4, TA, TB>(GMM_ARGS);
+      case 16: return launch_wgmma<16, 1, 4, TA, TB>(GMM_ARGS);
+      case 24: return launch_wgmma<24, 1, 4, TA, TB>(GMM_ARGS);
+      case 32: return launch_wgmma<32, 1, 4, TA, TB>(GMM_ARGS);
+      case 48: return launch_wgmma<48, 1, 4, TA, TB>(GMM_ARGS);
+      case 96: return launch_wgmma<96, 1, 4, TA, TB>(GMM_ARGS);
+      default: break;
+    }
+  }
+#undef GMM_ARGS
+  return cudaErrorInvalidValue;
+}
+
+// checks shared by the three entry points: -> -1 to go on, else the code
+int check(int E, int C, int D, int F, int dtype) {
+  if (E < 1 || C < 1 || D < 1 || F < 1 || E > 65535 ||
+      (C + 15) / 16 > 65535 || (D + 15) / 16 > 65535)
+    return cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  return -1;
+}
+
+// bf16 with rows of 16-byte strides (d and f multiples of 8) go to the
+// tensor cores; f32, or other widths, to the CUDA-core kernel
+bool tensor_cores(int dtype, int D, int F) {
+  return dtype == 1 && D % 8 == 0 && F % 8 == 0;
 }
 
 }  // namespace
@@ -381,17 +461,56 @@ int dispatch_wgmma(const void* x, const void* w, void* out, int E, int C,
 // cannot be encoded.
 extern "C" int expert_gemm(const void* x, const void* w, void* out, int E,
                            int C, int D, int F, int dtype, void* stream) {
-  if (E < 1 || C < 1 || D < 1 || F < 1 || E > 65535 ||
-      (C + 15) / 16 > 65535)
-    return cudaErrorInvalidValue;
+  const int bad = check(E, C, D, F, dtype);
+  if (bad >= 0) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(x, w, out, E, C, D, F, st);
-  if (dtype != 1) return cudaErrorInvalidValue;
-  // rows of x or w that are not 16-byte strides: no TMA
-  if (D % 8 != 0 || F % 8 != 0)
-    return dispatch<__nv_bfloat16>(x, w, out, E, C, D, F, st);
+  const Strides s{(long)C * D, D, 1, (long)D * F, F, 1};
+  if (!tensor_cores(dtype, D, F)) {
+    if (dtype == 0) return dispatch<float>(x, w, out, E, C, D, F, s, st);
+    return dispatch<__nv_bfloat16>(x, w, out, E, C, D, F, s, st);
+  }
   if (!hopper::aligned16(x) || !hopper::aligned16(w) ||
       !hopper::aligned16(out))
     return hopper::ERR_MISALIGNED;
-  return dispatch_wgmma(x, w, out, E, C, D, F, st);
+  // D (f x C) = w^T x^T: A = w (d, f) MN-major, B = x (C, d) K-major
+  return dispatch_wgmma<1, 0>(w, D, F, x, C, D, out, E, C, D, F, st);
+}
+
+// The backward's dX = dY W^T per expert: dy (E, C, f), w (E, d, f) ->
+// dx (E, C, d), in their dtype, f32 accumulation.  Codes as expert_gemm.
+extern "C" int expert_gemm_dx(const void* dy, const void* w, void* dx, int E,
+                              int C, int D, int F, int dtype, void* stream) {
+  const int bad = check(E, C, D, F, dtype);
+  if (bad >= 0) return bad;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Strides s{(long)C * F, F, 1, (long)D * F, 1, F};
+  if (!tensor_cores(dtype, D, F)) {
+    if (dtype == 0) return dispatch<float>(dy, w, dx, E, C, F, D, s, st);
+    return dispatch<__nv_bfloat16>(dy, w, dx, E, C, F, D, s, st);
+  }
+  if (!hopper::aligned16(dy) || !hopper::aligned16(w) ||
+      !hopper::aligned16(dx))
+    return hopper::ERR_MISALIGNED;
+  // D (d x C) = w dy^T: A = w (d, f) K-major, B = dy (C, f) K-major
+  return dispatch_wgmma<0, 0>(w, D, F, dy, C, F, dx, E, C, F, D, st);
+}
+
+// The backward's dW = X^T dY per expert, summed over C in one fixed order
+// (each block owns its tile of dW and walks C in sequence): x (E, C, d),
+// dy (E, C, f) -> dw (E, d, f).  Codes as expert_gemm.
+extern "C" int expert_gemm_dw(const void* x, const void* dy, void* dw, int E,
+                              int C, int D, int F, int dtype, void* stream) {
+  const int bad = check(E, C, D, F, dtype);
+  if (bad >= 0) return bad;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Strides s{(long)C * D, 1, D, (long)C * F, F, 1};
+  if (!tensor_cores(dtype, D, F)) {
+    if (dtype == 0) return dispatch<float>(x, dy, dw, E, D, C, F, s, st);
+    return dispatch<__nv_bfloat16>(x, dy, dw, E, D, C, F, s, st);
+  }
+  if (!hopper::aligned16(x) || !hopper::aligned16(dy) ||
+      !hopper::aligned16(dw))
+    return hopper::ERR_MISALIGNED;
+  // D (f x d) = dy^T x: A = dy (C, f) MN-major, B = x (C, d) MN-major
+  return dispatch_wgmma<1, 1>(dy, C, F, x, C, D, dw, E, D, C, F, st);
 }

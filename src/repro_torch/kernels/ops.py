@@ -5,6 +5,14 @@ goes to the hand-written kernel, which launches or raises: nothing falls
 back.  The model calls the attention entries, ``ssd_scan`` and
 ``expert_gemm`` when ``cfg.attn_impl == 'pallas'``; k-means calls
 ``router_assign``.
+
+Where an input requires a gradient, ``flash_attention``, ``ssd_scan`` and
+``expert_gemm`` go through their autograd Functions (``FlashAttention``,
+``SSDScan``, ``ExpertGemm``) on both devices: on the card the forward
+kernel that keeps what the backward needs, and the backward kernels
+(dK/dV and dQ; ``ssd_scan_bwd``; ``expert_gemm_dx`` and
+``expert_gemm_dw``); on the CPU the plain forward and plain backward.
+Serving (no gradient) launches the forward kernel alone.
 """
 from __future__ import annotations
 
@@ -93,34 +101,66 @@ def router_assign(z, centroids):
     return kernel(z.contiguous(), centroids.contiguous())
 
 
-def _no_backward(name: str, *ts) -> None:
-    if _needs_grad(*ts):
-        raise NotImplementedError(
-            f"{name} has no backward kernel yet: a CUDA input that requires "
-            f"a gradient would get an output without one (use the plain "
-            f"path, attn_impl != 'pallas', to differentiate)")
-
-
 def ssd_scan(x, dt, a, bmat, cmat, *, chunk: int):
     """Mamba2 SSD chunked scan.  x (B,S,H,P), dt (B,S,H), a (H,),
     bmat/cmat (B,S,G,N) with H % G == 0 and S % chunk == 0 -> (y
-    (B,S,H,P) in x's dtype, final state (B,H,P,N) f32).  Forward only:
-    a CUDA input that requires a gradient raises."""
-    if _device_type(x) == "cpu":
+    (B,S,H,P) in x's dtype, final state (B,H,P,N) f32).  Differentiable:
+    where an input requires a gradient it goes through ``SSDScan``."""
+    kind = _device_type(x)
+    if _needs_grad(x, dt, a, bmat, cmat):
+        from .ssd_scan import SSDScan
+        return SSDScan.apply(x, dt, a, bmat, cmat, chunk)
+    if kind == "cpu":
         return ref.ssd_scan_ref(x, dt, a, bmat, cmat, chunk=chunk)
-    _no_backward("ssd_scan", x, dt, a, bmat, cmat)
     from .ssd_scan import ssd_scan as kernel
     return kernel(x.contiguous(), dt.float().contiguous(),
                   a.float().contiguous(), bmat.contiguous(),
                   cmat.contiguous(), chunk=chunk)
 
 
+def ssd_scan_fwd_states(x, dt, a, bmat, cmat, *, chunk: int):
+    """-> (y, final state, start states (B,S/chunk,H,P,N) f32 on the
+    card; None on the CPU, whose plain backward recomputes them)."""
+    if _device_type(x) == "cpu":
+        return (*ref.ssd_scan_ref(x, dt, a, bmat, cmat, chunk=chunk), None)
+    from .ssd_scan import ssd_scan as kernel
+    return kernel(x, dt, a, bmat, cmat, chunk=chunk, states=True)
+
+
+def ssd_scan_bwd(x, dt, a, bmat, cmat, dy, dstate, starts, *, chunk: int):
+    """-> (dx, ddt, da, dB, dC); dstate (the final state's gradient) may
+    be None."""
+    if _device_type(x) == "cpu":
+        return ref.ssd_scan_bwd_ref(x, dt, a, bmat, cmat, dy, dstate,
+                                    chunk=chunk)
+    from .ssd_scan import ssd_scan_bwd as kernel
+    return kernel(x, dt, a, bmat, cmat, dy, dstate, starts, chunk=chunk)
+
+
 def expert_gemm(xe, w):
     """Per-expert batched GEMM: xe (E, C, d) @ w (E, d, f) -> (E, C, f) in
-    xe's dtype, f32 accumulation.  Forward only: a CUDA input that
-    requires a gradient raises."""
+    xe's dtype, f32 accumulation.  Differentiable: where an input
+    requires a gradient it goes through ``ExpertGemm``."""
+    _device_type(xe)
+    if _needs_grad(xe, w):
+        from .moe_gmm import ExpertGemm
+        return ExpertGemm.apply(xe, w)
+    return expert_gemm_fwd(xe, w)
+
+
+def expert_gemm_fwd(xe, w):
     if _device_type(xe) == "cpu":
         return ref.expert_gemm_ref(xe, w)
-    _no_backward("expert_gemm", xe, w)
     from .moe_gmm import expert_gemm as kernel
     return kernel(xe.contiguous(), w.contiguous())
+
+
+def expert_gemm_bwd(xe, w, dy, *, need_dx=True, need_dw=True):
+    """-> (dx (E,C,d) or None, dw (E,d,f) or None) for dy (E,C,f)."""
+    if _device_type(xe) == "cpu":
+        dx, dw = ref.expert_gemm_bwd_ref(xe, w, dy)
+    else:
+        from .moe_gmm import expert_gemm_dw, expert_gemm_dx
+        dx = expert_gemm_dx(dy, w, xe) if need_dx else None
+        dw = expert_gemm_dw(xe, dy, w) if need_dw else None
+    return (dx if need_dx else None), (dw if need_dw else None)

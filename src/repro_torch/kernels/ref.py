@@ -172,7 +172,102 @@ def ssd_scan_ref(x, dt, a, bmat, cmat, *, chunk: int):
     return y.to(x.dtype), state
 
 
+def _acc_dtype(t) -> torch.dtype:
+    """f32, or f64 for f64 inputs (where ``gradcheck`` differentiates)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def expert_gemm_ref(xe, w):
     """Plain version of the expert GEMM kernel: (E,C,d) @ (E,d,f) in f32,
     cast back to xe's dtype."""
-    return torch.einsum("ecd,edf->ecf", xe.float(), w.float()).to(xe.dtype)
+    acc = _acc_dtype(xe)
+    return torch.einsum("ecd,edf->ecf", xe.to(acc), w.to(acc)).to(xe.dtype)
+
+
+def ssd_scan_bwd_ref(x, dt, a, bmat, cmat, dy, dstate=None, *, chunk: int):
+    """Plain version of the SSD scan's backward, written out from the
+    chunked form (no autograd): for each chunk, with cum = cumsum(dt a)
+    inside it, xdt_s = dt_s x_s, S the state at the chunk's start and dS
+    the gradient reaching the state at its end,
+
+      dS_prev = e^{cum_L} dS + sum_l e^{cum_l} dy_l C_l^T      (reverse scan)
+      dC_l   = sum_{s<=l} (dy_l.xdt_s) e^{cum_l-cum_s} B_s + e^{cum_l} S^T dy_l
+      dB_s   = sum_{l>=s} (dy_l.xdt_s) e^{cum_l-cum_s} C_l + e^{cum_L-cum_s} dS^T xdt_s
+      dxdt_s = sum_{l>=s} (C_l.B_s) e^{cum_l-cum_s} dy_l + e^{cum_L-cum_s} dS B_s
+
+    and each exp term's share of dcum, reverse-summed into ddt and dA.
+    exp() sees segment differences only, as the forward.  dy (B,S,H,P),
+    dstate (B,H,P,N) or None -> (dx, ddt, da, dB, dC) in the dtypes of
+    x, dt, a, bmat, cmat; B and C grouped (summed over a group's heads)."""
+    b, s, h, pdim = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    nc, L, rep = s // chunk, chunk, h // g
+    xc = x.reshape(b, nc, L, h, pdim).float()
+    dtc = dt.reshape(b, nc, L, h).float()
+    Bc = bmat.reshape(b, nc, L, g, n).repeat_interleave(rep, dim=3).float()
+    Cc = cmat.reshape(b, nc, L, g, n).repeat_interleave(rep, dim=3).float()
+    dyc = dy.reshape(b, nc, L, h, pdim).float()
+    af = a.float()
+    cum = torch.cumsum((dtc * af).movedim(-1, 2), dim=-1)   # (b,nc,h,L)
+    cum_last = cum[..., -1]                                 # (b,nc,h)
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    seg = cum[..., :, None] - cum[..., None, :]             # (b,nc,h,l,s)
+    E = torch.exp(seg.masked_fill(~mask, -math.inf))
+    xdt = xc * dtc[..., None]                               # (b,nc,L,h,p)
+    w_in = torch.exp(cum).movedim(2, 3)                     # (b,nc,L,h)
+    w_end = torch.exp(cum_last[..., None] - cum).movedim(2, 3)
+    # chunk-start states (forward) and end-of-chunk gradients (reverse)
+    local = torch.einsum("bcsh,bcshn,bcshp->bchpn", w_end, Bc, xdt)
+    dlocal = torch.einsum("bclh,bclhn,bclhp->bchpn", w_in, Cc, dyc)
+    decay = torch.exp(cum_last)                             # (b,nc,h)
+    S = torch.zeros((b, h, pdim, n), device=x.device)
+    dS = (torch.zeros_like(S) if dstate is None
+          else dstate.float().clone())
+    starts, ends = [], [None] * nc
+    for c in range(nc):
+        starts.append(S)
+        S = decay[:, c, :, None, None] * S + local[:, c]
+    for c in reversed(range(nc)):
+        ends[c] = dS
+        dS = decay[:, c, :, None, None] * dS + dlocal[:, c]
+    S0, dSe = torch.stack(starts, 1), torch.stack(ends, 1)  # (b,nc,h,p,n)
+    # intra-chunk terms
+    CB = torch.einsum("bclhn,bcshn->bchls", Cc, Bc)
+    G = torch.einsum("bclhp,bcshp->bchls", dyc, xdt)
+    GE, CBE = G * E, CB * E
+    T = GE * CB
+    # the state terms, each with its dcum share
+    dC_in = w_in[..., None] * torch.einsum("bchpn,bclhp->bclhn", S0, dyc)
+    dB_st = w_end[..., None] * torch.einsum("bchpn,bcshp->bcshn", dSe, xdt)
+    dxdt_st = w_end[..., None] * torch.einsum("bchpn,bcshn->bcshp", dSe, Bc)
+    dC = torch.einsum("bchls,bcshn->bclhn", GE, Bc) + dC_in
+    dB = torch.einsum("bchls,bclhn->bcshn", GE, Cc) + dB_st
+    dxdt = torch.einsum("bchls,bclhp->bcshp", CBE, dyc) + dxdt_st
+    U = (Cc * dC_in).sum(-1).movedim(3, 2)                  # (b,nc,h,L)
+    V = (xdt * dxdt_st).sum(-1).movedim(3, 2)
+    W = decay * (dSe * S0).sum((-1, -2))                    # (b,nc,h)
+    dcum = T.sum(-1) - T.sum(-2) + U - V
+    dcum[..., -1] += V.sum(-1) + W
+    rc = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    rc = rc.movedim(2, 3)                                   # (b,nc,L,h)
+    ddt = (xc * dxdt).sum(-1) + af * rc
+    da = (dtc * rc).sum((0, 1, 2))
+    dx = dtc[..., None] * dxdt
+    dB = dB.reshape(b, nc, L, g, rep, n).sum(4)
+    dC = dC.reshape(b, nc, L, g, rep, n).sum(4)
+    return (dx.reshape(x.shape).to(x.dtype), ddt.reshape(dt.shape).to(dt.dtype),
+            da.to(a.dtype), dB.reshape(bmat.shape).to(bmat.dtype),
+            dC.reshape(cmat.shape).to(cmat.dtype))
+
+
+def expert_gemm_bwd_ref(xe, w, dy):
+    """Plain version of the expert GEMM's backward: dX = dY W^T and
+    dW = X^T dY per expert (the latter summed over C), in f32, cast
+    back to the inputs' dtypes -> (dx (E,C,d), dw (E,d,f))."""
+    acc = _acc_dtype(xe)
+    dyf = dy.to(acc)
+    dx = torch.einsum("ecf,edf->ecd", dyf, w.to(acc))
+    dw = torch.einsum("ecd,ecf->edf", xe.to(acc), dyf)
+    return dx.to(xe.dtype), dw.to(w.dtype)

@@ -418,7 +418,10 @@ def _ssd_inputs(seed, b, s, h, p, g, n):
 
 # (B, S, H, P, G, N, chunk): several chunks, groups, the routing
 # prefix, a 6-token prompt (chunk 6), a ragged last tile (chunk 100),
-# the full width at a short length
+# the full width at a short length; then the edges of the bf16
+# tensor-core passes: G = H, chunk 32 / 64 / 256 over several chunks,
+# each P and N, a chunk that is not a multiple of 64 tokens (l tiles of
+# 64 + 36), and head slices of 8 sharing one group's C B^T
 SSD_CASES = [
     (2, 128, 4, 32, 1, 32, 64),
     (2, 96, 6, 64, 3, 64, 32),
@@ -426,6 +429,22 @@ SSD_CASES = [
     (2, 6, 4, 64, 1, 128, 6),
     (2, 200, 4, 64, 2, 128, 100),
     (1, 512, 64, 64, 1, 128, 256),
+    (2, 96, 4, 32, 4, 64, 32),
+    (1, 768, 16, 32, 1, 128, 256),
+    (2, 300, 8, 64, 8, 32, 100),
+    (1, 256, 16, 64, 2, 64, 64),
+    (3, 64, 4, 32, 2, 32, 64),
+]
+# backward cases: mamba2-1.3b's training shape (B4 S1024), then the same
+# edges at smaller sizes
+SSD_BWD_CASES = [
+    (4, 1024, 64, 64, 1, 128, 256),
+    (2, 128, 4, 32, 1, 32, 64),
+    (2, 96, 6, 64, 3, 64, 32),
+    (2, 200, 4, 64, 2, 128, 100),
+    (1, 512, 16, 64, 1, 128, 256),
+    (2, 96, 4, 32, 4, 64, 32),
+    (2, 6, 4, 64, 1, 128, 6),
 ]
 
 
@@ -451,6 +470,78 @@ def test_ssd_scan_kernel_matches_plain(cuda, dtype, b, s, h, p, g, n,
     torch.testing.assert_close(y.float(), py.float(), atol=TOL[dtype],
                                rtol=0)
     torch.testing.assert_close(state, pstate, atol=1e-4, rtol=0)
+    # the start states the backward takes: chunk c's is the final state
+    # of the first c chunks
+    y2, state2, starts = ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                  states=True)
+    assert torch.equal(y2, y) and torch.equal(state2, state)
+    assert starts.shape == (b, s // chunk, h, p, n)
+    assert float(starts[:, 0].abs().max()) == 0
+    for c in range(1, s // chunk):
+        _, want = ref.ssd_scan_ref(x[:, :c * chunk], dt[:, :c * chunk], a,
+                                   bm[:, :c * chunk], cm[:, :c * chunk],
+                                   chunk=chunk)
+        torch.testing.assert_close(starts[:, c], want, atol=1e-4, rtol=0)
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("final_grad", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_BWD_CASES)
+def test_ssd_scan_bwd_kernel_matches_plain(cuda, dtype, final_grad, b, s, h,
+                                           p, g, n, chunk):
+    """dx, ddt, dA, dB, dC against the plain backward on the same inputs,
+    each relative to its largest value (f32: summation order and the
+    segment differences' exponents; bf16: one rounding of the bf16
+    outputs and of the scores before their products on the tensor
+    cores)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    x, dt, a, bm, cm = _ssd_inputs(12, b, s, h, p, g, n)
+    dy, ds = _randn(13, (b, s, h, p), (b, h, p, n))
+    x, bm, cm, dy = (t.to(cuda, dtype) for t in (x, bm, cm, dy))
+    dt, a = dt.to(cuda), a.to(cuda)
+    ds = ds.to(cuda) if final_grad else None
+    _, _, starts = ssd_scan(x, dt, a, bm, cm, chunk=chunk, states=True)
+    before = ssd_scan_bwd.launches
+    got = ssd_scan_bwd(x, dt, a, bm, cm, dy, ds, starts, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd.launches == before + 1
+    want = ref.ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, ds, chunk=chunk)
+    # f32: ddt and dA carry the exponents' error (|cum| in the hundreds)
+    # times A through the reverse cumsum of dcum
+    tol = ({"ddt": 1e-3, "da": 1e-3} if dtype == torch.float32 else {})
+    for name, u, v in zip(("dx", "ddt", "da", "dB", "dC"), got, want):
+        assert u.dtype == v.dtype and u.shape == v.shape, name
+        bar = tol.get(name, 1e-4 if dtype == torch.float32 else 2e-2)
+        assert _rel(u, v) <= bar, (name, _rel(u, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_of_ssd_and_gemm_are_bit_identical(cuda, dtype):
+    """Two launches of each backward on the same inputs give the same
+    bits: every sum has one order (no float atomics)."""
+    from repro_torch.kernels.moe_gmm import expert_gemm_dw, expert_gemm_dx
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    x, dt, a, bm, cm = _ssd_inputs(14, 2, 512, 8, 64, 1, 128)
+    dy, ds = _randn(15, (2, 512, 8, 64), (2, 8, 64, 128))
+    x, bm, cm, dy = (t.to(cuda, dtype) for t in (x, bm, cm, dy))
+    dt, a, ds = dt.to(cuda), a.to(cuda), ds.to(cuda)
+    _, _, starts = ssd_scan(x, dt, a, bm, cm, chunk=256, states=True)
+    one = ssd_scan_bwd(x, dt, a, bm, cm, dy, ds, starts, chunk=256)
+    two = ssd_scan_bwd(x, dt, a, bm, cm, dy, ds, starts, chunk=256)
+    xe, w, gy = (t.to(cuda, dtype) for t in
+                 _randn(16, (4, 340, 256), (4, 256, 192), (4, 340, 192)))
+    one += (expert_gemm_dx(gy, w, xe), expert_gemm_dw(xe, gy, w))
+    two += (expert_gemm_dx(gy, w, xe), expert_gemm_dw(xe, gy, w))
+    torch.cuda.synchronize()
+    for u, v in zip(one, two):
+        assert torch.equal(u, v)
 
 
 # (E, C, d, f): a decode step's sizes (dropless C = batch), the routing
@@ -488,6 +579,32 @@ def test_expert_gemm_kernel_matches_plain(cuda, dtype, e, c, d, f):
     plain = ref.expert_gemm_ref(xe, w)
     assert out.dtype == dtype and out.shape == (e, c, f)
     torch.testing.assert_close(out.float(), plain.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", GEMM_CASES + [(2, 1360, 136, 72)])
+def test_expert_gemm_bwd_kernels_match_plain(cuda, dtype, e, c, d, f):
+    """dX = dY W^T and dW = X^T dY against the f32 einsums on the same
+    inputs, scaled so that both are about N(0, 1/4): below 4, where one
+    bf16 rounding is within TOL, and large against TOL."""
+    from repro_torch.kernels.moe_gmm import expert_gemm_dw, expert_gemm_dx
+    xe, w, dy = _randn(17, (e, c, d), (e, d, f), (e, c, f))
+    xe, w = (xe * c ** -0.5).to(cuda, dtype), (w * f ** -0.5).to(cuda, dtype)
+    dy = (dy * 0.5).to(cuda, dtype)
+    before = expert_gemm_dx.launches, expert_gemm_dw.launches
+    dx, dw = expert_gemm_dx(dy, w, xe), expert_gemm_dw(xe, dy, w)
+    torch.cuda.synchronize()
+    assert (expert_gemm_dx.launches, expert_gemm_dw.launches) == (
+        before[0] + 1, before[1] + 1)
+    pdx, pdw = ref.expert_gemm_bwd_ref(xe, w, dy)
+    assert dx.dtype == dw.dtype == dtype
+    assert dx.shape == xe.shape and dw.shape == w.shape
+    assert min(float(pdx.float().std()), float(pdw.float().std())) > 0.2
+    torch.testing.assert_close(dx.float(), pdx.float(), atol=TOL[dtype],
+                               rtol=0)
+    torch.testing.assert_close(dw.float(), pdw.float(), atol=TOL[dtype],
                                rtol=0)
 
 
@@ -533,22 +650,77 @@ def test_bf16_tensor_core_kernels_raise_on_a_misaligned_base(cuda):
 
 
 @pytest.mark.cuda
-def test_ssd_and_gemm_ops_raise_on_inputs_that_require_grad(cuda):
-    """Neither kernel has a backward: a CUDA input that requires a
-    gradient raises instead of giving an output without a grad_fn."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_and_gemm_ops_backward_through_kernels(cuda, dtype):
+    """A CUDA input that requires a gradient goes through SSDScan and
+    ExpertGemm: the forward kernel and the backward kernels launch once
+    each (nothing falls back), and the gradients match the plain path's
+    (f32: summation order; bf16: one rounding of each output)."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gmm import (expert_gemm, expert_gemm_dw,
+                                             expert_gemm_dx)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     x, dt, a, bm, cm = (t.to(cuda) for t in
-                        _ssd_inputs(11, 1, 8, 2, 32, 1, 32))
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.ssd_scan(x.requires_grad_(True), dt, a, bm, cm, chunk=8)
-    w = torch.zeros(2, 32, 16, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.expert_gemm(torch.zeros(2, 4, 32, device=cuda), w)
+                        _ssd_inputs(11, 2, 128, 4, 32, 2, 64))
+    x, bm, cm = (t.to(dtype) for t in (x, bm, cm))
+    dy, ds = (t.to(cuda) for t in _randn(18, (2, 128, 4, 32), (2, 4, 32, 64)))
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, a, bm, cm)]
+    before = ssd_scan.launches, ssd_scan_bwd.launches
+    y, state = ops.ssd_scan(*leaves, chunk=64)
+    ((y.float() * dy).sum() + (state * ds).sum()).backward()
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = [t.clone().requires_grad_(True) for t in (x, dt, a, bm, cm)]
+    py, pstate = ref.ssd_scan_ref(*plain, chunk=64)
+    ((py.float() * dy).sum() + (pstate * ds).sum()).backward()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for u, v in zip(leaves, plain):
+        assert u.grad.dtype == u.dtype and _rel(u.grad, v.grad) <= tol, \
+            _rel(u.grad, v.grad)
+    xe, w, gy = (t.to(cuda, dtype) for t in
+                 _randn(19, (3, 40, 64), (3, 64, 48), (3, 40, 48)))
+    xe.requires_grad_(True)
+    w.requires_grad_(True)
+    before = (expert_gemm.launches, expert_gemm_dx.launches,
+              expert_gemm_dw.launches)
+    (ops.expert_gemm(xe, w).float() * gy.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert (expert_gemm.launches, expert_gemm_dx.launches,
+            expert_gemm_dw.launches) == tuple(n + 1 for n in before)
+    pdx, pdw = ref.expert_gemm_bwd_ref(xe.detach(), w.detach(), gy)
+    assert _rel(xe.grad, pdx) <= tol and _rel(w.grad, pdw) <= tol
+    # serving: no gradient, the forward kernels alone
     with torch.no_grad():
-        y, _ = ops.ssd_scan(x, dt, a, bm, cm, chunk=8)
-        assert ops.expert_gemm(torch.zeros(2, 4, 32, device=cuda),
-                               w).shape == (2, 4, 16)
-    assert y.shape == x.shape
+        before = ssd_scan_bwd.launches, expert_gemm_dx.launches
+        ops.ssd_scan(*leaves, chunk=64)
+        ops.expert_gemm(xe, w)
+        assert (ssd_scan_bwd.launches, expert_gemm_dx.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "qwen2-moe-a2.7b"])
+def test_new_families_train_through_their_kernels(cuda, arch):
+    """One loss gradient of the smoke config through the kernels
+    (attn_impl="pallas") against the plain path's, leaf by leaf, in f32:
+    summation order only."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import api
+    from repro_torch.models.params import tree_leaves
+    cfg = get_smoke_config(arch).replace(attn_impl="pallas")
+    params = api.init_model(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(2))
+    grads = {}
+    for impl in ("pallas", "full"):
+        loss, _, g = value_and_grad(params, cfg.replace(attn_impl=impl),
+                                    {"tokens": toks})
+        grads[impl] = (float(loss), tree_leaves(g))
+    assert abs(grads["pallas"][0] - grads["full"][0]) <= 1e-4
+    for u, v in zip(grads["pallas"][1], grads["full"][1]):
+        err = float((u - v).norm() / v.norm().clamp_min(1e-30))
+        assert err <= 1e-3, err
 
 
 @pytest.mark.cuda

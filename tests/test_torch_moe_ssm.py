@@ -297,8 +297,9 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_ops_other_devices():
 
 
 def test_cpu_ops_stay_differentiable():
-    """On the CPU the plain versions are differentiated by autograd (the
-    card raises instead: no backward kernel yet)."""
+    """On the CPU an input that requires a gradient goes through the
+    SSDScan and ExpertGemm Functions over the plain forwards and plain
+    backwards (on the card, over the kernels)."""
     x, dt, a, bm, cm = (T_(t).requires_grad_(True)
                         for t in _ssd_inputs(8, 1, 16, 2, 16, 1, 16))
     y, state = ops.ssd_scan(x, dt, a, bm, cm, chunk=8)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's ``flash_decode`` and ``router_assign`` kernels of one
-source tree on the card, eagerly and replayed from a CUDA graph, beside
-the PyTorch calls that compute the same functions.
+"""Time the port's ``flash_decode``, ``router_assign`` and ``ssd_scan``
+kernels of one source tree on the card, eagerly and (the first two)
+replayed from a CUDA graph, beside the PyTorch calls that compute the
+same functions.
 
     python3 tools/kernel_timing.py --src SRC_DIR [--label NAME]
 
@@ -14,7 +15,10 @@ shape (B8 H16 D64, 80 slots) and at B64 over a wrapped ring of 2048
 slots, with masked SDPA; over full rings of 2048 slots at 1, 4 and 8
 query heads a KV head, with its bytes bound and (MHA) the rate of
 copying the cache; f32 ``router_assign`` at k-means' N 2048 K 4 and at
-N 65536 K 256 (D 896), with ``torch.cdist`` + ``argmin``.
+N 65536 K 256 (D 896), with ``torch.cdist`` + ``argmin``; bf16
+``ssd_scan`` at mamba2-1.3b's widths (H64 P64 G1 N128) at the routing
+prefix (B8 S32 chunk 32) and a prefill (B8 S2048 chunk 256), with its
+error against the plain version.
 """
 from __future__ import annotations
 
@@ -55,6 +59,54 @@ def graph_ms(torch, fn) -> float:
     return time_ms(torch, graph.replay)
 
 
+def ssd_timings(torch, gen) -> dict:
+    """bf16 ssd_scan of this tree at mamba2-1.3b's widths: x / 8, dt =
+    softplus(z - 2), A = -(1..H), B and C scaled so that C.B is about 1."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    out = {}
+    for name, b, s, chunk in (("B8 S32 chunk 32", 8, 32, 32),
+                              ("B8 S2048 chunk 256", 8, 2048, 256)):
+        h, p, g, n = 64, 64, 1, 128
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        x = (randn(b, s, h, p) * 0.125).to(torch.bfloat16)
+        dt = F.softplus(randn(b, s, h) - 2.0)
+        a = -torch.arange(1, h + 1, dtype=torch.float32, device="cuda")
+        bm, cm = ((randn(b, s, g, n) * n ** -0.25).to(torch.bfloat16)
+                  for _ in range(2))
+        y, state = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+        py, pstate = ref.ssd_scan_ref(x, dt, a, bm, cm, chunk=chunk)
+        out[name] = {
+            "max_abs_err": (y.float() - py.float()).abs().max().item(),
+            "state_max_abs_err": (state - pstate).abs().max().item(),
+            "ms": time_ms(torch, lambda: ssd_scan(x, dt, a, bm, cm,
+                                                  chunk=chunk)),
+            "device_ms_by_kernel": device_ms(
+                torch, lambda: ssd_scan(x, dt, a, bm, cm, chunk=chunk))}
+    return out
+
+
+def device_ms(torch, fn, calls: int = 10) -> dict:
+    """Device time per call of each kernel fn launches, from
+    torch.profiler's raw trace, by the first 50 characters of its name."""
+    fn()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            key = e.name()[:50]
+            by_name[key] = by_name.get(key, 0.0) + e.duration_ns() / 1e6
+    return {k: v / calls for k, v in by_name.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", required=True)
@@ -79,6 +131,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     out = {"label": args.label or args.src, "card": card}
 
+    out["ssd_scan"] = ssd_timings(torch, gen)
     decode = {}
     full = [4095]                  # every slot of a 2048-slot ring valid
     for name, b, h, kh, T, ci in (
