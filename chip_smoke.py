@@ -62,6 +62,25 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    gradients through the kernels against the plain path's, leaf by
    leaf, 4 blocks deep, in f32 and bf16.
 
+7. The continuous-batching engine at full width: ``dipaco-150m`` (bf16,
+   ``attn_impl="pallas"``, 4 paths of 8 slots over a 512-token ring)
+   serves a Poisson trace of 64 requests (200 a second, prompts of 32,
+   64 or 128 tokens, 32 new, 30% interactive and 70% preemptible) routed
+   by a prompt hash, in realtime with the eager tick and with the dense
+   tick replayed from a CUDA graph, then both again on a simulated clock
+   (10 ms a tick: the same admissions in both), whose greedy tokens must
+   be equal and which must preempt and exert backpressure, then in
+   realtime routed by a discriminative router re-routing every 8 tokens.
+   Every request must finish and every slot come back; flash-decode must
+   launch once a block for each decode the host dispatched, flash
+   attention once a block for each feature call, and torch.profiler must
+   see 12 flash-decode kernels in each replay of the graph.  Prints per
+   run tok/s, p50/p99 latency and TTFT, ticks, the median tick (the
+   ``serve.tick`` spans), the device busy share and peak memory, beside
+   the card.  Then ``mamba2-1.3b`` (4 of 48 blocks, f32, 2 paths of 4
+   slots, 16 requests): the stacked tick's tokens must equal the looped
+   tick's.
+
 It prints one ``{"kernels": [...]}`` line before the card's line, with
 the backward kernels' rows too, and the last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA
@@ -70,6 +89,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -105,7 +125,11 @@ from repro_torch.models import api, moe_layer  # noqa: E402
 from repro_torch.models.config import DiPaCoConfig  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
-from repro_torch.serving import EngineOptions, PathServingEngine  # noqa: E402
+from repro_torch.obs import Telemetry, read_trace  # noqa: E402
+from repro_torch.serving import (PRIO_HIGH, PRIO_PREEMPTIBLE,  # noqa: E402
+                                 ContinuousBatchingEngine, EngineOptions,
+                                 PathServingEngine, poisson_trace,
+                                 prefix_hash_router)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth and
 # the rate for each input type (bf16 and TF32 on the tensor cores, f32
@@ -334,7 +358,13 @@ def check_flash_decode(gen) -> dict:
               # the arrival counter (MHA; GQA, window, wrapped; MQA)
               (1, 16, 16, 64, 2048, None, [2047]),
               (1, 16, 2, 128, 2048, 700, [3000]),
-              (1, 4, 1, 32, 2048, None, [5000])]
+              (1, 4, 1, 32, 2048, None, [5000]),
+              # phase 7's stacked tick: 4 paths x 8 slots over a 512-token
+              # ring at the positions of its prompts and new tokens, and
+              # free slots parked at position 0
+              (CB_PATHS * CB_SLOTS, 16, 16, 64, CB_CACHE, None,
+               [0 if i % 4 == 0 else int(c) for i, c in enumerate(
+                   rng.integers(32, 160, CB_PATHS * CB_SLOTS))])]
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for int8 in (False, True):
@@ -359,7 +389,9 @@ def check_flash_decode(gen) -> dict:
                 print(f"[flash_decode] {row}")
                 assert err <= TOL[dtype], row
     # timings in bf16 at the serving path's shape (all 8 requests, last
-    # step) and at a large batch over a long, wrapped ring
+    # step), at a large batch over a long, wrapped ring, and at phase 7's
+    # stacked tick (4 paths x 8 slots over a 512-token ring, positions of
+    # prompts of 32-128 tokens with up to 32 new)
     main = fd_timings(gen, 8, 16, 64, CACHE_LEN, [CACHE_LEN - 1] * 8)
     return {
         "name": "flash_decode", "route": "cuda",
@@ -369,6 +401,9 @@ def check_flash_decode(gen) -> dict:
         "library_call": "F.scaled_dot_product_attention(attn_mask=ring mask)",
         "long": fd_timings(gen, 64, 16, 64, 2048,
                            rng.integers(0, 3 * 2048, 64).tolist()),
+        "tick": fd_timings(gen, CB_PATHS * CB_SLOTS, 16, 64, CB_CACHE,
+                           rng.integers(32, 160, CB_PATHS * CB_SLOTS)
+                           .tolist()),
         "cases": rows}
 
 
@@ -381,6 +416,7 @@ def fd_timings(gen, b, h, d, T, ci) -> dict:
     cit = torch.tensor(ci, dtype=torch.int32, device="cuda")
     err = (flash_decode(q, kc, vc, cit).float()
            - ref.flash_decode_ref(q, kc, vc, cit).float()).abs().max().item()
+    assert err <= TOL[dtype], (b, h, d, T, err)
     n_bytes, n_ops = decode_work(cit, T, h, d, None, h, kc.element_size())
     bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
     pos = ref.ring_positions(cit, T)
@@ -682,12 +718,14 @@ def ssd_bwd_work(x, dt, a, bm, cm, chunk) -> tuple:
 # (B, S, H, P, G, N, chunk, padded tail): a full-width prefill (8 chunks),
 # the routing prefix of the serving path (chunk = S = 32), phase 6's
 # training shape (B4 S1024), a ragged length (1000 tokens padded to
-# 1024), a 6-token prompt; then the edges of the
+# 1024), a 6-token prompt, phase 7's batch-1 prefills of 32 and 64
+# tokens (one chunk each); then the edges of the
 # bf16 tensor-core passes: G = H, chunk 32 / 64 / 100 / 256 (a chunk of 64
 # + 36 tokens), each P and N
 SSD_CASES = [(8, 2048, 64, 64, 1, 128, 256, 0), (8, 32, 64, 64, 1, 128, 32, 0),
              (4, 1024, 64, 64, 1, 128, 256, 0),
              (8, 1024, 64, 64, 1, 128, 256, 24), (8, 6, 64, 64, 1, 128, 6, 0),
+             (1, 32, 64, 64, 1, 128, 32, 0), (1, 64, 64, 64, 1, 128, 64, 0),
              (2, 96, 4, 32, 4, 64, 32, 0), (2, 300, 8, 64, 8, 32, 100, 0),
              (1, 768, 16, 32, 1, 128, 256, 0), (2, 256, 16, 64, 2, 64, 64, 0),
              (3, 64, 4, 32, 2, 32, 64, 0)]
@@ -1549,6 +1587,238 @@ def family_grad_parity(name: str, dtype: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the continuous-batching engine at full width
+# ---------------------------------------------------------------------------
+# dipaco-150m, 4 paths of 8 slots over a 512-token ring; a Poisson trace of
+# 64 requests at 200 a second (prompts of 32, 64 or 128 tokens, 32 new;
+# 30% interactive, 70% preemptible), routed by a prompt hash
+CB_PATHS, CB_SLOTS, CB_CACHE, CB_REROUTE = 4, 8, 512, 8
+CB_TRACE = dict(n=64, rate=200.0, prompt_lens=(32, 64, 128), max_new=32,
+                seed=0, priorities=((PRIO_HIGH, PRIO_PREEMPTIBLE), (0.3, 0.7)))
+# the simulated clock of the token-identity runs: 10 ms a tick, so that
+# arrivals meet full islands (backpressure, preemption) as in realtime,
+# while both runs see the same admissions and ticks
+CB_SIM_DT = 0.01
+CB_PROFILED_REPLAYS = 5
+# the masked SSM state on the card: mamba2-1.3b cut to 4 of its 48 blocks
+# (time), widths unchanged, f32; 2 paths of 4 slots, 16 requests
+CB_MAMBA_DEPTH, CB_MAMBA_SLOTS, CB_MAMBA_REQUESTS = 4, 4, 16
+PHASE7_DIR = Path(__file__).resolve().parent / "build" / "phase7"
+
+
+def cb_engine(cfg, paths, *, graph: bool, tel=None, router=None,
+              reroute_every: int = 0, slots: int = CB_SLOTS,
+              cache_len: int = CB_CACHE, stacked=None):
+    eng = ContinuousBatchingEngine(cfg, paths, options=EngineOptions(
+        cache_len=cache_len, slots_per_path=slots, cuda_graph=graph,
+        telemetry=tel, router=router, stacked=stacked,
+        feat_params=paths[0] if router is not None else None,
+        route_fn=None if router is not None
+        else prefix_hash_router(len(paths)),
+        reroute_every=reroute_every))
+    eng.warmup()
+    return eng
+
+
+def percentiles(xs) -> dict:
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99))}
+
+
+def cb_run(cfg, paths, name: str, card: str, *, graph: bool,
+           realtime: bool = True, router=None,
+           reroute_every: int = 0) -> dict:
+    """One run of the trace through a fresh, warmed-up engine (its dense
+    tick captured where ``graph``), the kernels' counts set to 0 just
+    before it and read just after.  Checks that every request finishes
+    with in-range tokens, every slot comes back, the run exerts
+    backpressure, and flash-decode
+    launched once an attention block for every decode the host
+    dispatched (the eager dense ticks, the sparse ticks' islands),
+    flash attention once a block for every feature call.  The ticks'
+    host times come from the engine's ``serve.tick`` spans (telemetry
+    on); then the same trace runs again under torch.profiler for the
+    device busy share."""
+    trace = poisson_trace(vocab_size=cfg.vocab_size, **CB_TRACE)
+    PHASE7_DIR.mkdir(parents=True, exist_ok=True)
+    tel_path = PHASE7_DIR / f"{name}.jsonl"
+    tel = Telemetry(tel_path, fresh=True, meta={"run": name})
+    eng = cb_engine(cfg, paths, graph=graph, tel=tel, router=router,
+                    reroute_every=reroute_every)
+    assert (eng._graph is not None) == graph
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    fins = eng.serve_trace(trace, realtime=realtime, tick_dt=CB_SIM_DT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    tel.close()
+    ticks_ms = [(r["t1"] - r["t0"]) / 1e6 for r in read_trace(tel_path)[0]
+                if r.get("name") == "serve.tick"]
+    stats = dict(eng.decode_stats)
+    sched = dataclasses.asdict(eng.scheduler.stats)
+    n = CB_TRACE["n"]
+    new_tokens = n * CB_TRACE["max_new"]
+    assert sorted(f.rid for f in fins) == list(range(n)), name
+    assert not eng.in_flight and all(a.num_free == CB_SLOTS
+                                     for a in eng.arenas), name
+    for f in fins:
+        gen = f.tokens[len(trace[f.rid].prompt):]
+        assert len(gen) == CB_TRACE["max_new"], (name, f.rid)
+        assert ((gen >= 0) & (gen < cfg.vocab_size)).all(), (name, f.rid)
+    attn = sum(b.mixer == "attn" for b in cfg.pattern) * cfg.pattern_repeats
+    host_decodes = (stats["dense"] - stats["graph_replays"]
+                    + stats["sparse_islands"] + stats["looped_islands"])
+    assert launched["flash_decode"] == attn * host_decodes, (name, launched,
+                                                             stats)
+    assert launched["flash_attention"] == attn * stats["feature_calls"], (
+        name, launched, stats)
+    assert (stats["graph_replays"] == stats["dense"] > 0) if graph else \
+        stats["graph_replays"] == 0, (name, stats)
+    # the trace overloads the islands: queued requests wait on slots
+    # (how many high-priority arrivals find a full island of preemptible
+    # requests depends on the host's tick time in realtime, so the
+    # preemptions are checked on the simulated clock, in `continuous`)
+    assert sched["backpressure_ticks"] > 0, (name, sched)
+    out = {"card": card, "cuda_graph": graph, "realtime": realtime,
+           "tokens_per_s": new_tokens / wall, "seconds": wall,
+           "ticks": eng.ticks, "decode": stats, "scheduler": sched,
+           "switches": sum(f.switches for f in fins),
+           "latency_ms": {k: v * 1e3 for k, v in percentiles(
+               [f.latency for f in fins]).items()},
+           "ttft_ms": {k: v * 1e3 for k, v in percentiles(
+               [f.ttft for f in fins]).items()},
+           "tick_ms": {"median": float(np.median(ticks_ms)),
+                       "spans": len(ticks_ms)},
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launched,
+           "tokens": {f.rid: f.tokens.tolist() for f in fins}}
+    assert len(ticks_ms) == eng.ticks, (name, len(ticks_ms), eng.ticks)
+    if realtime:
+        prof = profiled(lambda: eng.serve_trace(trace, realtime=True), 6,
+                        tracked=("decode_kernel",))
+        out["device_busy_share"] = prof["busy_share"]
+        out["profile"] = prof
+    if graph:
+        out["graph"] = graph_tick_profile(eng, attn)
+    summary = {k: v for k, v in out.items() if k not in ("tokens",
+                                                         "profile")}
+    print(f"[continuous {name}] {card}: {summary}", flush=True)
+    del eng
+    free_memory()
+    return out
+
+
+def graph_tick_profile(eng, attn: int) -> dict:
+    """The captured dense tick on its own, with the mask all False (the
+    replays leave every cache row as it was): torch.profiler over a few
+    replays must show one flash-decode kernel an attention block and
+    replay (the Python counter does not see replays); CUDA events time a
+    replay against the same tick run eagerly from Python."""
+    g = eng._graph
+    g.inp.zero_()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        for _ in range(CB_PROFILED_REPLAYS):
+            g.graph.replay()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    decodes = sum("decode_kernel" in n for n in names)
+    assert decodes == attn * CB_PROFILED_REPLAYS, (decodes, attn)
+    with torch.no_grad():
+        eager_ms = time_ms(lambda: eng._dense_body(g.inp), iters=20)
+    return {"decode_kernels_per_replay": decodes / CB_PROFILED_REPLAYS,
+            "kernels_per_replay": len(names) / CB_PROFILED_REPLAYS,
+            "replay_ms": time_ms(g.graph.replay), "eager_tick_ms": eager_ms}
+
+
+def continuous(card: str) -> dict:
+    """Phase 7: dipaco-150m at full width through the continuous engine:
+    the trace in realtime eager and with the CUDA-graph tick, the same
+    two on the simulated clock (greedy tokens must be equal; both must
+    preempt and exert backpressure), a realtime run routed by a
+    discriminative router with re-routing every 8 tokens, then the
+    mamba2-1.3b stacked tick against the looped one."""
+    cfg = get_config("dipaco-150m").replace(attn_impl="pallas",
+                                            dtype="bfloat16")
+    paths = [api.init_model(cfg, seed=p, device="cuda")
+             for p in range(CB_PATHS)]
+    runs = {"eager": cb_run(cfg, paths, "eager", card, graph=False),
+            "graph": cb_run(cfg, paths, "graph", card, graph=True)}
+    sim = {k: cb_run(cfg, paths, f"sim_{k}", card, graph=k == "graph",
+                     realtime=False) for k in ("eager", "graph")}
+    assert sim["graph"]["tokens"] == sim["eager"]["tokens"], \
+        "graph tick tokens differ from the eager tick's"
+    assert sim["graph"]["scheduler"] == sim["eager"]["scheduler"]
+    assert sim["eager"]["scheduler"]["preemptions"] > 0, sim["eager"]
+    runs["realtime_tokens_equal"] = sum(
+        runs["graph"]["tokens"][rid] == toks
+        for rid, toks in runs["eager"]["tokens"].items())
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
+                             seq_len=PROMPT_LEN, seed=0)
+    feats = prefix_features(paths[0], cfg, corpus.sample_documents(64,
+                                                                   seed=1))
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    router = DiscriminativeRouter(
+        w=torch.randn((cfg.d_model, CB_PATHS), generator=gen, device="cuda"),
+        b=torch.zeros(CB_PATHS, device="cuda"), mu=feats.mean(0),
+        sigma=torch.clamp_min(feats.std(0), 1e-6))
+    runs["router"] = cb_run(cfg, paths, "router", card, graph=True,
+                            router=router, reroute_every=CB_REROUTE)
+    assert runs["router"]["decode"]["feature_calls"] > CB_TRACE["n"]
+    for r in (*runs.values(), *sim.values()):
+        if isinstance(r, dict):
+            r.pop("tokens", None)
+    runs["sim"] = sim
+    del paths, feats, router
+    free_memory()
+    runs["mamba"] = continuous_mamba(card)
+    return runs
+
+
+def continuous_mamba(card: str) -> dict:
+    """mamba2-1.3b (4 of 48 blocks, f32, 2 paths of 4 slots): the stacked
+    tick (decode_step_paths, masked SSM state) against the looped one
+    (one masked decode_step an island), same trace on the simulated
+    clock: equal greedy tokens; prefill (batch 1, no buckets) launches
+    ssd_scan once a block and request."""
+    cfg = get_config("mamba2-1.3b").replace(
+        attn_impl="pallas", dtype="float32", num_layers=CB_MAMBA_DEPTH)
+    paths = [api.init_model(cfg, seed=p, device="cuda") for p in range(2)]
+    trace = poisson_trace(CB_MAMBA_REQUESTS, rate=200.0,
+                          prompt_lens=(32, 64), max_new=16,
+                          vocab_size=cfg.vocab_size, seed=1)
+    out, tokens = {"card": card, "blocks": CB_MAMBA_DEPTH}, {}
+    for stacked in (True, False):
+        eng = cb_engine(cfg, paths, graph=False, slots=CB_MAMBA_SLOTS,
+                        cache_len=128, stacked=stacked)
+        assert not eng.bucketed and eng.stacked is stacked
+        reset_counts()
+        t0 = time.perf_counter()
+        fins = eng.serve_trace(trace, tick_dt=CB_SIM_DT)
+        torch.cuda.synchronize()
+        key = "stacked" if stacked else "looped"
+        launched = counts()
+        assert launched["ssd_scan"] == CB_MAMBA_DEPTH * len(trace), launched
+        assert all(a.num_free == CB_MAMBA_SLOTS for a in eng.arenas)
+        tokens[key] = {f.rid: f.tokens.tolist() for f in fins}
+        out[key] = {"seconds": time.perf_counter() - t0,
+                    "ticks": eng.ticks, "decode": dict(eng.decode_stats),
+                    "launches": launched}
+        del eng
+    assert sorted(tokens["stacked"]) == list(range(len(trace)))
+    assert tokens["stacked"] == tokens["looped"], \
+        "mamba2 stacked tick tokens differ from the looped tick's"
+    print(f"[continuous mamba2-1.3b] {card}: {out}", flush=True)
+    del paths
+    free_memory()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1655,12 +1925,32 @@ def main() -> int:
         if k["name"] in ("flash_attention_lse", "flash_attention_dkv",
                          "flash_attention_dq"):
             k["launches_train_qwen2_moe"] = trained_moe[k["name"]]
+    t0 = time.perf_counter()
+    reset_counts()
+    cont = continuous(card)
+    phase_s["continuous"] = time.perf_counter() - t0
+    print(f"[phase] continuous: {phase_s['continuous']:.1f} s", flush=True)
+    for k in kernels:
+        if k["name"] == "flash_decode":
+            k["launches_continuous"] = cont["eager"]["launches"][
+                "flash_decode"]
+            k["launches_continuous_graph"] = cont["graph"]["launches"][
+                "flash_decode"]
+            k["replayed_per_graph_tick"] = cont["graph"]["graph"][
+                "decode_kernels_per_replay"]
+        elif k["name"] == "flash_attention":
+            k["launches_continuous_router"] = cont["router"]["launches"][
+                "flash_attention"]
+        elif k["name"] == "ssd_scan":
+            k["launches_continuous_mamba"] = cont["mamba"]["stacked"][
+                "launches"]["ssd_scan"]
     print(f"[phase] seconds: {phase_s}")
 
     summary = {"kernels": kernels}
     print(json.dumps({"serve": runs, "prefill_decode_parity": parity,
                       "train": trained, "train_grad_parity": grads,
-                      "families": families, "phase_seconds": phase_s}))
+                      "families": families, "continuous": cont,
+                      "phase_seconds": phase_s}))
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,7 @@
   forward_loss(params, cfg, batch)         -> (loss, aux dict)
   init_serve_cache(cfg, batch, cache_len, device=)
   prefill(params, cfg, batch, cache_len)   -> (logits, cache)
-  serve_step(params, cfg, batch, cache, index) -> (logits, cache)
+  serve_step(params, cfg, batch, cache, index, mask=) -> (logits, cache)
 
 ``serve_step`` (alias ``decode_step``) accepts a scalar index or a (B,)
 vector of per-row positions, and updates ``cache`` in place.
@@ -60,11 +60,13 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int, *, window=None):
     return LM.prefill(params, cfg, batch["tokens"], cache_len, window=window)
 
 
-def serve_step(params, cfg: ModelConfig, batch, cache, index, *, window=None):
-    """One-token decode.  batch: dict(tokens (B,1))."""
+def serve_step(params, cfg: ModelConfig, batch, cache, index, *, window=None,
+               mask=None):
+    """One-token decode.  batch: dict(tokens (B,1)).  ``mask`` (B,) bool:
+    False rows leave their cache unchanged."""
     _check_decoder(cfg)
     return LM.decode_step(params, cfg, batch["tokens"], cache, index,
-                          window=window)
+                          window=window, mask=mask)
 
 
 decode_step = serve_step

@@ -199,15 +199,22 @@ def _host_positions(cache_index):
     return np.asarray(cache_index)
 
 
-def _row_update_(buf, val, start):
+def _row_update_(buf, val, start, mask=None):
     """In-place per-row ring write: buf (B,T,...)[b, start[b]:+s] = val[b]
     for val (B,s,...).  The start is clamped so that the block fits, as
-    ``lax.dynamic_update_slice`` does."""
+    ``lax.dynamic_update_slice`` does.  Where ``mask`` (B,) bool is False
+    the row's old values are written back, so the row stays bit for bit
+    as it was (the reference's masked ``sel``); the select runs on the
+    device, so the write needs no host sync."""
     b, s = val.shape[:2]
     start = torch.clamp(start, max=buf.shape[1] - s)
     rows = torch.arange(b, device=buf.device)[:, None]
     cols = start[:, None] + torch.arange(s, device=buf.device)[None, :]
-    buf[rows, cols] = val.to(buf.dtype)
+    val = val.to(buf.dtype)
+    if mask is not None:
+        keep = mask.reshape((b,) + (1,) * (val.ndim - 1))
+        val = torch.where(keep, val, buf[rows, cols])
+    buf[rows, cols] = val
 
 
 def _quant(x):
@@ -220,112 +227,141 @@ def _quant(x):
 
 
 def _proj(x, w):
-    """x (B,S,d) @ w (d,H,K) -> (B,S,H,K)."""
-    d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).reshape(*x.shape[:2], h, k)
+    """x (B,S,d) @ w (d,H,K) -> (B,S,H,K).  Path-stacked weights (P,d,H,K)
+    with x (P,S,d) give one batched product over P."""
+    d, h, k = w.shape[-3:]
+    w = w.to(x.dtype).reshape(*w.shape[:-3], d, h * k)
+    return (x @ w).reshape(*x.shape[:2], h, k)
 
 
-def apply_attention(p, cfg: ModelConfig, x, *, positions, causal=True,
-                    window=None, cache=None, cache_index=None):
-    """Multi-head attention with GQA/MQA, optional qk-norm & RoPE.
-
-    cache: optional dict(k=(B,T,KH,D), v=...) for decode/incremental
-    prefill, written in place; cache_index is the write position of the
-    *first* token of this call — a scalar, or a (B,) vector when rows
-    sit at different positions.  Multi-token calls (s > 1) write the
-    block contiguously and mask causally within it; a block that would
-    wrap the ring raises while its start positions are host values.
-    Returns (out, cache).
-    """
-    b, s, _ = x.shape
+def attention_qkv(p, cfg: ModelConfig, x, positions):
+    """Projections, qk-norm and RoPE: x (B,S,d) -> q (B,S,H,D), k and v
+    (B,S,KH,D).  With path-stacked weights, x (P,S,d) and positions
+    (P,S) (the norms' scales then broadcast as (P,1,1,D))."""
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def attention_out(p, out):
+    """The output projection: out (B,S,H,D) @ wo (H,D,d) -> (B,S,d), or
+    one batched product over P for path-stacked wo (P,H,D,d)."""
+    h, hd, d = p["wo"].shape[-3:]
+    wo = p["wo"].to(out.dtype).reshape(*p["wo"].shape[:-3], h * hd, d)
+    return out.reshape(*out.shape[:2], h * hd) @ wo
+
+
+def apply_attention(p, cfg: ModelConfig, x, *, positions, causal=True,
+                    window=None, cache=None, cache_index=None, mask=None):
+    """Multi-head attention with GQA/MQA, optional qk-norm & RoPE.
+
+    cache: optional dict(k=(B,T,KH,D), v=...) for decode/incremental
+    prefill, written in place (see ``cached_attention``; ``mask`` (B,)
+    leaves the False rows' cache untouched).  Returns (out, cache).
+    """
+    q, k, v = attention_qkv(p, cfg, x, positions)
     if cache is not None:
-        T = cache["k"].shape[1]
-        if s > 1:
-            if s > T:
-                raise ValueError(
-                    f"multi-token cache write of {s} tokens exceeds "
-                    f"cache length {T}")
-            host = _host_positions(cache_index)
-            if host is not None:
-                starts = host % T
-                if int(starts.max()) + s > T:
-                    raise ValueError(
-                        f"multi-token cache write wraps the ring: start "
-                        f"{int(starts.max())} + {s} tokens > cache "
-                        f"length {T}; split the block or grow the cache")
-        ci = _cache_positions(cache_index, b, x.device)       # (B,)
-        idx = ci.long() % T
-        quantized = "k_scale" in cache
-        if quantized:
-            kq, ks = _quant(k)
-            vq, vs = _quant(v)
-            _row_update_(cache["k"], kq, idx)
-            _row_update_(cache["v"], vq, idx)
-            _row_update_(cache["k_scale"], ks, idx)
-            _row_update_(cache["v_scale"], vs, idx)
-        else:
-            _row_update_(cache["k"], k, idx)
-            _row_update_(cache["v"], v, idx)
-        ck, cv = cache["k"], cache["v"]
-        if s == 1 and cfg.attn_impl == "pallas":
-            # flash-decode streams the ring cache once with an online
-            # softmax, masks ring validity from the per-row positions on
-            # the device and dequantizes int8 KV in registers
-            out = ops.decode_attention(
-                q[:, 0].contiguous(), ck, cv, ci, window=window,
-                k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
-            out = out[:, None].to(x.dtype)                   # (B, 1, H, D)
-        else:
-            # dense masked branch: prefill (s > 1), and decode unless
-            # attn_impl == "pallas"
-            if quantized:
-                ckf = (ck.float() * cache["k_scale"][..., None]).to(q.dtype)
-                cvf = (cv.float() * cache["v_scale"][..., None]).to(q.dtype)
-            else:
-                ckf, cvf = ck, cv
-            kh = ck.shape[2]
-            g = cfg.num_heads // kh
-            qg = q.reshape(b, s, kh, g, cfg.head_dim)
-            scores = (_gqa_scores(qg, ckf.to(q.dtype))
-                      / math.sqrt(cfg.head_dim))
-            # absolute position stored in each ring slot, per batch row;
-            # reconstructed from the position of the *last* token written
-            abs_pos = ring_positions(ci.long() + s - 1, T)     # (B, T)
-            qpos = ci.long()[:, None] + torch.arange(
-                s, device=x.device)[None, :]                  # (B, S)
-            valid = ((abs_pos[:, None, :] >= 0)
-                     & (abs_pos[:, None, :] <= qpos[..., None]))  # (B,S,T)
-            if window is not None:
-                valid &= abs_pos[:, None, :] > qpos[..., None] - window
-            prob = torch.softmax(_masked(scores, valid[:, None, None]),
-                                 dim=-1)
-            out = _gqa_out(prob, cvf.to(prob.dtype))
-            out = out.reshape(b, s, cfg.num_heads,
-                              cfg.head_dim).to(x.dtype)
+        out = cached_attention(cfg, q, k, v, cache, cache_index,
+                               window=window, mask=mask)
+    elif cfg.attn_impl == "pallas" and causal:
+        # the kernel masks the ragged tail itself: no padding to 128.
+        # Differentiable: with grads on, ops takes the autograd
+        # Function (LSE forward + dK/dV and dQ kernels)
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+    elif cfg.attn_impl == "full" or x.shape[1] <= cfg.attn_chunk_q:
+        out = full_attention(q, k, v, causal=causal, window=window)
     else:
-        if cfg.attn_impl == "pallas" and causal:
-            # the kernel masks the ragged tail itself: no padding to 128.
-            # Differentiable: with grads on, ops takes the autograd
-            # Function (LSE forward + dK/dV and dQ kernels)
-            out = ops.flash_attention(q, k, v, causal=True, window=window)
-        elif cfg.attn_impl == "full" or s <= cfg.attn_chunk_q:
-            out = full_attention(q, k, v, causal=causal, window=window)
+        out = chunked_attention(
+            q, k, v, causal=causal, window=window,
+            chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k,
+            causal_skip=cfg.causal_skip)
+    return attention_out(p, out), cache
+
+
+def cached_attention(cfg: ModelConfig, q, k, v, cache, cache_index, *,
+                     window=None, mask=None):
+    """Write k, v into the ring cache in place, then attend over it.
+
+    q (B,s,H,D), k and v (B,s,KH,D); cache dict(k=(B,T,KH,D), v=..., and
+    for int8 k_scale, v_scale (B,T,KH)).  cache_index is the write
+    position of the *first* token of this call — a scalar, or a (B,)
+    vector when rows sit at different positions.  Multi-token calls
+    (s > 1) write the block contiguously and mask causally within it; a
+    block that would wrap the ring raises while its start positions are
+    host values.  ``mask`` (B,) bool: a False row's cache stays bit for
+    bit as it was (its output is computed and meaningless).  Returns the
+    attention output (B,s,H,D).
+    """
+    b, s = q.shape[:2]
+    T = cache["k"].shape[1]
+    if s > 1:
+        if s > T:
+            raise ValueError(
+                f"multi-token cache write of {s} tokens exceeds "
+                f"cache length {T}")
+        host = _host_positions(cache_index)
+        if host is not None:
+            starts = host % T
+            if int(starts.max()) + s > T:
+                raise ValueError(
+                    f"multi-token cache write wraps the ring: start "
+                    f"{int(starts.max())} + {s} tokens > cache "
+                    f"length {T}; split the block or grow the cache")
+    ci = _cache_positions(cache_index, b, q.device)       # (B,)
+    idx = ci.long() % T
+    quantized = "k_scale" in cache
+    if quantized:
+        kq, ks = _quant(k)
+        vq, vs = _quant(v)
+        _row_update_(cache["k"], kq, idx, mask)
+        _row_update_(cache["v"], vq, idx, mask)
+        _row_update_(cache["k_scale"], ks, idx, mask)
+        _row_update_(cache["v_scale"], vs, idx, mask)
+    else:
+        _row_update_(cache["k"], k, idx, mask)
+        _row_update_(cache["v"], v, idx, mask)
+    ck, cv = cache["k"], cache["v"]
+    if s == 1 and cfg.attn_impl == "pallas":
+        # flash-decode streams the ring cache once with an online
+        # softmax, masks ring validity from the per-row positions on
+        # the device and dequantizes int8 KV in registers
+        out = ops.decode_attention(
+            q[:, 0].contiguous(), ck, cv, ci, window=window,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+        out = out[:, None].to(q.dtype)                   # (B, 1, H, D)
+    else:
+        # dense masked branch: prefill (s > 1), and decode unless
+        # attn_impl == "pallas"
+        if quantized:
+            ckf = (ck.float() * cache["k_scale"][..., None]).to(q.dtype)
+            cvf = (cv.float() * cache["v_scale"][..., None]).to(q.dtype)
         else:
-            out = chunked_attention(
-                q, k, v, causal=causal, window=window,
-                chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k,
-                causal_skip=cfg.causal_skip)
-    h, hd, d = p["wo"].shape
-    y = out.reshape(b, s, h * hd) @ p["wo"].to(x.dtype).reshape(h * hd, d)
-    return y, cache
+            ckf, cvf = ck, cv
+        kh = ck.shape[2]
+        g = cfg.num_heads // kh
+        qg = q.reshape(b, s, kh, g, cfg.head_dim)
+        scores = (_gqa_scores(qg, ckf.to(q.dtype))
+                  / math.sqrt(cfg.head_dim))
+        # absolute position stored in each ring slot, per batch row;
+        # reconstructed from the position of the *last* token written
+        abs_pos = ring_positions(ci.long() + s - 1, T)     # (B, T)
+        qpos = ci.long()[:, None] + torch.arange(
+            s, device=q.device)[None, :]                  # (B, S)
+        valid = ((abs_pos[:, None, :] >= 0)
+                 & (abs_pos[:, None, :] <= qpos[..., None]))  # (B,S,T)
+        if window is not None:
+            valid &= abs_pos[:, None, :] > qpos[..., None] - window
+        prob = torch.softmax(_masked(scores, valid[:, None, None]),
+                             dim=-1)
+        out = _gqa_out(prob, cvf.to(prob.dtype))
+        out = out.reshape(b, s, cfg.num_heads,
+                          cfg.head_dim).to(q.dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -384,9 +420,10 @@ def embed_tokens(p, cfg: ModelConfig, tokens):
 
 
 def unembed(p, cfg: ModelConfig, x):
-    # logits stay in the activation dtype; the loss upcasts to f32
+    # logits stay in the activation dtype; the loss upcasts to f32.
+    # Path-stacked tables (P,V,d) with x (P,S,d) give one batched product
     if cfg.tie_embeddings:
-        logits = x @ p["embedding"].to(x.dtype).T
+        logits = x @ p["embedding"].to(x.dtype).transpose(-2, -1)
     else:
         logits = x @ p["unembed"].to(x.dtype)
     if cfg.logit_softcap:

@@ -21,6 +21,7 @@ from repro_torch.device import resolve_device
 
 from .config import ModelConfig
 from .layers import (_cache_positions, apply_attention, apply_mlp,
+                     attention_out, attention_qkv, cached_attention,
                      embed_tokens, init_attention, init_embedding, init_mlp,
                      init_rmsnorm, rms_norm, torch_dtype, unembed)
 from .moe_layer import apply_moe, init_moe
@@ -84,20 +85,25 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # Apply
 # ---------------------------------------------------------------------------
-def _write_state_(cache, new_state) -> None:
-    """Overwrite a Mamba layer's cache views in place."""
+def _write_state_(cache, new_state, mask=None) -> None:
+    """Overwrite a Mamba layer's cache views in place; where ``mask`` (B,)
+    is False a row keeps its old state bit for bit."""
     for k, v in new_state.items():
+        v = v.to(cache[k].dtype)
+        if mask is not None:
+            v = torch.where(mask.reshape((-1,) + (1,) * (v.ndim - 1)), v,
+                            cache[k])
         cache[k].copy_(v)
 
 
 def _apply_block(bp, cfg: ModelConfig, spec, x, *, positions, window,
-                 cache=None, cache_index=None, is_prefill=False):
+                 cache=None, cache_index=None, is_prefill=False, mask=None):
     """-> (x, aux): aux is the MoE load-balance loss, None without one."""
     h = rms_norm(bp["norm1"], x, cfg.norm_eps)
     if spec.mixer == "attn":
         y, _ = apply_attention(bp["mixer"], cfg, h, positions=positions,
                                causal=True, window=window, cache=cache,
-                               cache_index=cache_index)
+                               cache_index=cache_index, mask=mask)
     elif cache is None:
         y, _ = apply_mamba(bp["mixer"], cfg, h)
     else:
@@ -108,7 +114,7 @@ def _apply_block(bp, cfg: ModelConfig, spec, x, *, positions, window,
         y, new_state = apply_mamba(bp["mixer"], cfg, h,
                                    state=None if is_prefill else cache,
                                    return_state=is_prefill)
-        _write_state_(cache, new_state)
+        _write_state_(cache, new_state, mask)
     x = x + y
     aux = None
     if spec.mlp != "none":
@@ -122,7 +128,8 @@ def _apply_block(bp, cfg: ModelConfig, spec, x, *, positions, window,
 
 
 def _apply_group(group, cfg: ModelConfig, x, aux, *, positions, window,
-                 caches=None, cache_index=None, is_prefill=False):
+                 caches=None, cache_index=None, is_prefill=False,
+                 mask=None):
     """One pass over ``cfg.pattern`` (the reference's scan body): group
     and caches hold one layer's leaves per pattern position.  -> (x, aux
     plus the group's MoE load-balance losses)."""
@@ -130,7 +137,8 @@ def _apply_group(group, cfg: ModelConfig, x, aux, *, positions, window,
         c = None if caches is None else caches[f"pos{i}"]
         x, a = _apply_block(group[f"pos{i}"], cfg, spec, x,
                             positions=positions, window=window, cache=c,
-                            cache_index=cache_index, is_prefill=is_prefill)
+                            cache_index=cache_index, is_prefill=is_prefill,
+                            mask=mask)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -149,7 +157,8 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _scan_blocks(params, cfg: ModelConfig, x, *, positions, window,
-                 caches=None, cache_index=None, is_prefill=False):
+                 caches=None, cache_index=None, is_prefill=False,
+                 mask=None):
     """Walk the repeating pattern group over ``pattern_repeats``; each
     layer's cache is a view into the stacked cache, written in place.
 
@@ -171,7 +180,7 @@ def _scan_blocks(params, cfg: ModelConfig, x, *, positions, window,
         c = None if caches is None else \
             {k: {n: a[r] for n, a in v.items()} for k, v in caches.items()}
         kw = dict(positions=positions, window=window, caches=c,
-                  cache_index=cache_index, is_prefill=is_prefill)
+                  cache_index=cache_index, is_prefill=is_prefill, mask=mask)
         if remat:
             x, aux = checkpoint(_apply_group, group, cfg, x, aux,
                                 use_reentrant=False, context_fn=context_fn,
@@ -225,20 +234,129 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def decode_step(params, cfg: ModelConfig, tokens, caches, cache_index, *,
-                window=None):
+                window=None, mask=None):
     """One decode step.  tokens: (B, 1) -> (logits (B,1,V), caches).
 
     cache_index: a scalar, or a (B,) vector when the batch rows sit at
     different sequence positions.  ``caches`` is updated in place and
-    returned.
+    returned.  ``mask`` (B,) bool: a row where it is False leaves its
+    cache (K, V, int8 scales, Mamba conv and SSM state) bit for bit
+    unchanged, as the reference's masked decode does; its logits are
+    meaningless.  The select runs on the device: no host sync, so the
+    step can be captured in a CUDA graph.
     """
     x = embed_tokens(params["embed"], cfg, tokens)
     ci = _cache_positions(cache_index, tokens.shape[0], x.device)
     window = window if window is not None else cfg.sliding_window
     x, _ = _scan_blocks(params, cfg, x, positions=ci[:, None],
-                        window=window, caches=caches, cache_index=ci)
+                        window=window, caches=caches, cache_index=ci,
+                        mask=mask)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], cfg, x), caches
+
+
+# ---------------------------------------------------------------------------
+# Path-stacked decode (the continuous engine's stacked-island tick)
+# ---------------------------------------------------------------------------
+def stack_paths(path_params_list):
+    """Stack P homogeneous paths' weights once: block leaves as (reps, P,
+    ...), so that each layer's slice (P, ...) is contiguous, the others
+    (embedding, final norm) as (P, ...)."""
+    def stack(dim):
+        return lambda *xs: torch.stack(xs, dim)
+    first = path_params_list[0]
+    return {k: tree_map(stack(1 if k == "blocks" else 0), first[k],
+                        *(p[k] for p in path_params_list[1:]))
+            for k in first}
+
+
+def path_view(stacked, p: int):
+    """Path ``p``'s weights as views into the stack (the reference tree's
+    layout: block leaves (reps, ...), each layer's slice contiguous)."""
+    return {k: tree_map(lambda a: a[:, p] if k == "blocks" else a[p], v)
+            for k, v in stacked.items()}
+
+
+def _paths_loop(fn, bp, x, caches, mask):
+    """Apply ``fn(params, x (S,1,d), cache, mask)`` path by path (the
+    mixers and MLPs with no batched form over P: Mamba, MoE) and stack the
+    (S,1,d) outputs back to (P,S,d)."""
+    outs = []
+    for p in range(x.shape[0]):
+        c = None if caches is None else {n: a[p] for n, a in caches.items()}
+        outs.append(fn(tree_map(lambda a, p=p: a[p], bp), x[p][:, None], c,
+                       None if mask is None else mask[p])[:, 0])
+    return torch.stack(outs)
+
+
+def decode_step_paths(stacked, cfg: ModelConfig, tokens, caches,
+                      cache_index, mask=None, *, window=None):
+    """One decode step of P homogeneous paths at once (the counterpart of
+    the reference's ``jax.vmap`` of its masked decode over the path axis).
+
+    stacked: ``stack_paths`` weights; tokens (P, S, 1); caches with leaves
+    (reps, P, S, ...), updated in place; cache_index and mask (P, S) on
+    the device.  The projections, the dense MLP and the unembedding are
+    batched products over P; the attention is one ``cached_attention``
+    (one flash-decode launch under ``attn_impl="pallas"``) over the P*S
+    flattened rows of each layer's contiguous (P, S, T, KH, D) cache.
+    Mamba mixers and MoE MLPs run path by path on the same code as
+    ``decode_step``.  A False row of ``mask`` keeps its cache bit for bit.
+    Returns (logits (P, S, 1, V), caches).
+    """
+    n_paths, slots = tokens.shape[:2]
+    emb = stacked["embed"]
+    vocab = emb["embedding"].shape[1]
+    dev = emb["embedding"].device
+    # one gather from the (P*V, d) table: path p's ids offset by p*V
+    offs = torch.arange(n_paths, device=dev)[:, None] * vocab
+    x = embed_tokens({"embedding": emb["embedding"].flatten(0, 1)}, cfg,
+                     tokens[..., 0].long() + offs)                # (P,S,d)
+    ci = _cache_positions(cache_index, n_paths * slots, dev).reshape(
+        n_paths, slots)
+    window = window if window is not None else cfg.sliding_window
+    rows = n_paths * slots
+    flat_mask = None if mask is None else mask.reshape(rows)
+
+    def mamba(p, h, c, m):
+        y, new_state = apply_mamba(p, cfg, h, state=c)
+        _write_state_(c, new_state, m)
+        return y
+
+    def moe(p, h, c, m):
+        return apply_moe(p, cfg, h)[0]
+
+    for r in range(cfg.pattern_repeats):
+        for i, spec in enumerate(cfg.pattern):
+            bp = tree_map(lambda a: a[r], stacked["blocks"][f"pos{i}"])
+            c = {n: a[r] for n, a in caches[f"pos{i}"].items()}
+            # per-path norm scales (P, d) broadcast over the slots
+            h = rms_norm(bp["norm1"][:, None], x, cfg.norm_eps)
+            if spec.mixer == "attn":
+                mp = dict(bp["mixer"])
+                if cfg.qk_norm:
+                    mp["q_norm"] = mp["q_norm"][:, None, None]
+                    mp["k_norm"] = mp["k_norm"][:, None, None]
+                q, k, v = attention_qkv(mp, cfg, h, ci)
+                out = cached_attention(
+                    cfg, *(t.reshape(rows, 1, *t.shape[2:])
+                           for t in (q, k, v)),
+                    # a view (raises where the layer's slice is not
+                    # contiguous): the writes must land in the arena
+                    {n: a.view(rows, *a.shape[2:]) for n, a in c.items()},
+                    ci.reshape(rows), window=window, mask=flat_mask)
+                y = attention_out(mp, out.reshape(n_paths, slots,
+                                                  *out.shape[2:]))
+            else:
+                y = _paths_loop(mamba, bp["mixer"], h, c, mask)
+            x = x + y
+            if spec.mlp != "none":
+                h = rms_norm(bp["norm2"][:, None], x, cfg.norm_eps)
+                y = (_paths_loop(moe, bp["mlp"], h, None, mask)
+                     if spec.mlp == "moe" else apply_mlp(bp["mlp"], cfg, h))
+                x = x + y
+    x = rms_norm(stacked["final_norm"][:, None], x, cfg.norm_eps)
+    return unembed(emb, cfg, x)[:, :, None], caches
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,

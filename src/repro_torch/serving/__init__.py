@@ -1,3 +1,13 @@
-from .engine import EngineOptions, GenerationResult, PathServingEngine
+from .cache import PrefixCache, SlotArena, SlotExhausted, StackedSlotArenas
+from .engine import (ContinuousBatchingEngine, EngineOptions,
+                     FinishedRequest, GenerationResult, PathServingEngine)
+from .scheduler import (PRIO_HIGH, PRIO_PREEMPTIBLE, PRIO_STANDARD, Request,
+                        RequestState, Scheduler, SchedulerStats,
+                        poisson_trace, prefix_hash_router)
 
-__all__ = ["EngineOptions", "GenerationResult", "PathServingEngine"]
+__all__ = ["ContinuousBatchingEngine", "EngineOptions", "FinishedRequest",
+           "GenerationResult", "PRIO_HIGH", "PRIO_PREEMPTIBLE",
+           "PRIO_STANDARD", "PathServingEngine", "PrefixCache", "Request",
+           "RequestState", "Scheduler", "SchedulerStats", "SlotArena",
+           "SlotExhausted", "StackedSlotArenas", "poisson_trace",
+           "prefix_hash_router"]

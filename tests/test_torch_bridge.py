@@ -121,7 +121,7 @@ def _no_card():
 
 @pytest.mark.parametrize("entry", [
     "init_model", "from_numpy_tree", "init_serve_cache", "serve_main",
-    "make_trainer", "train_main"])
+    "serve_continuous_main", "make_trainer", "train_main"])
 def test_default_device_without_card_raises(entry):
     _no_card()
     cfg = tcfgs.get_smoke_config("dipaco-150m")
@@ -135,6 +135,9 @@ def test_default_device_without_card_raises(entry):
         "init_serve_cache": lambda: tapi.init_serve_cache(cfg, 1, 8),
         "serve_main": lambda: __import__(
             "repro_torch.launch.serve", fromlist=["main"]).main([]),
+        "serve_continuous_main": lambda: __import__(
+            "repro_torch.launch.serve", fromlist=["main"]).main(
+                ["--engine", "continuous"]),
         "make_trainer": lambda: __import__(
             "repro_torch", fromlist=["make_trainer"]).make_trainer(
                 cfg, DiPaCoConfig(), ds),

@@ -755,3 +755,124 @@ def test_new_families_go_through_their_kernels(cuda, arch):
             lk, ck = api.serve_step(params, cfg, {"tokens": tok}, ck, t)
             lp, cp = api.serve_step(params, plain, {"tokens": tok}, cp, t)
             torch.testing.assert_close(lk, lp, atol=1e-4, rtol=0)
+
+
+def _serve_trace_cuda(cuda, cfg, paths, graph: bool, trace_seed: int = 5):
+    """The continuous engine over ``paths`` on the simulated clock (the
+    same admissions and ticks in every run), warmed up (and the dense
+    tick captured where ``graph``) -> (engine, {rid: tokens})."""
+    from repro_torch.serving import (ContinuousBatchingEngine, EngineOptions,
+                                     poisson_trace, prefix_hash_router)
+    eng = ContinuousBatchingEngine(cfg, paths, options=EngineOptions(
+        cache_len=48, slots_per_path=4, cuda_graph=graph,
+        route_fn=prefix_hash_router(len(paths))))
+    eng.warmup()
+    trace = poisson_trace(24, rate=300.0, prompt_lens=(8, 12, 20),
+                          max_new=10, vocab_size=cfg.vocab_size,
+                          seed=trace_seed)
+    fins = eng.serve_trace(trace)
+    return eng, {f.rid: f.tokens for f in fins}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_tick_matches_eager_tick(cuda, dtype):
+    """The dense stacked tick replayed from its CUDA graph gives the eager
+    tick's greedy tokens and the same cache bits, on a small arena (4
+    paths x 4 slots) through flash-decode; the graph run replays every
+    dense tick and launches flash-decode only in sparse ticks."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.decode_attention import flash_decode
+    from repro_torch.models import api
+    from repro_torch.models.params import tree_leaves
+    cfg = get_smoke_config("dipaco-150m").replace(attn_impl="pallas",
+                                                  dtype=dtype)
+    paths = [api.init_model(cfg, seed=p, device=cuda) for p in range(4)]
+    eager, want = _serve_trace_cuda(cuda, cfg, paths, graph=False)
+    assert eager._graph is None
+    before = flash_decode.launches
+    graph, got = _serve_trace_cuda(cuda, cfg, paths, graph=True)
+    stats = graph.decode_stats
+    assert graph._graph is not None
+    assert stats["graph_replays"] == stats["dense"] > 0
+    # warm-up (a dense and an island step), the capture's warm-up and the
+    # capture call the wrapper once a block each; then only the sparse
+    # ticks' islands launch from the host
+    assert flash_decode.launches - before == cfg.num_layers * (
+        4 + stats["sparse_islands"])
+    assert sorted(got) == sorted(want) == list(range(24))
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+    for a, b in zip(tree_leaves(eager._stacked_arenas.cache),
+                    tree_leaves(graph._stacked_arenas.cache)):
+        assert torch.equal(a, b)
+    # a graph engine that was never warmed up refuses to tick eagerly
+    from repro_torch.serving import (ContinuousBatchingEngine, EngineOptions,
+                                     prefix_hash_router)
+    cold = ContinuousBatchingEngine(cfg, paths, options=EngineOptions(
+        cache_len=48, slots_per_path=4, cuda_graph=True,
+        route_fn=prefix_hash_router(len(paths))))
+    with pytest.raises(RuntimeError, match="warmup"):
+        cold.step()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kw", [
+    ("dipaco-150m", {"dtype": "float32"}),
+    ("dipaco-150m", {"dtype": "bfloat16"}),
+    ("dipaco-150m", {"dtype": "float32", "kv_quant": True}),
+    ("mamba2-1.3b", {"dtype": "float32"}),
+    ("qwen2-moe-a2.7b", {"dtype": "float32"})])
+def test_decode_step_paths_matches_per_path_decode(cuda, arch, kw):
+    """``decode_step_paths`` (one flash-decode launch a layer over the P x
+    S rows) against P masked ``decode_step`` calls on views of the stack:
+    logits and written cache rows within the dtype's tolerance (the
+    products are batched over P; flash-decode splits its rows
+    differently), masked rows bit for bit unchanged."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.decode_attention import flash_decode
+    from repro_torch.models import api, lm
+    from repro_torch.models.params import tree_leaves, tree_map
+    cfg = get_smoke_config(arch).replace(attn_impl="pallas", **kw)
+    n_paths, slots, cache_len = 3, 4, 40
+    paths = [api.init_model(cfg, seed=p, device=cuda)
+             for p in range(n_paths)]
+    stacked = lm.stack_paths(paths)
+    g = torch.Generator(cuda).manual_seed(3)
+    one = api.init_serve_cache(cfg, slots, cache_len, device=cuda)
+    caches = tree_map(lambda a: (torch.randn(
+        (a.shape[0], n_paths, *a.shape[1:]), generator=g, device=cuda)
+        * (40 if a.dtype == torch.int8 else 1)).to(a.dtype), one)
+    looped = tree_map(torch.clone, caches)
+    before = tree_map(torch.clone, caches)
+    tok = torch.randint(0, cfg.vocab_size, (n_paths, slots, 1), generator=g,
+                        device=cuda)
+    idx = torch.randint(0, 2 * cache_len, (n_paths, slots), generator=g,
+                        device=cuda).int()
+    mask = torch.tensor([[True, False, True, True], [False] * 4,
+                         [True] * 4], device=cuda)
+    tol = TOL[torch.float32 if kw["dtype"] == "float32" else torch.bfloat16]
+    attn_blocks = sum(s.mixer == "attn" for s in cfg.pattern) * \
+        cfg.pattern_repeats
+    with torch.inference_mode():
+        n0 = flash_decode.launches
+        logits, _ = lm.decode_step_paths(stacked, cfg, tok, caches, idx, mask)
+        assert flash_decode.launches - n0 == attn_blocks
+        for p in range(n_paths):
+            lp, _ = api.serve_step(lm.path_view(stacked, p), cfg,
+                                   {"tokens": tok[p]},
+                                   tree_map(lambda a, p=p: a[:, p], looped),
+                                   idx[p], mask=mask[p])
+            rows = mask[p]
+            torch.testing.assert_close(logits[p][rows].float(),
+                                       lp[rows].float(), atol=tol * 10,
+                                       rtol=0)
+    torch.cuda.synchronize()
+    for a, b, old in zip(tree_leaves(caches), tree_leaves(looped),
+                         tree_leaves(before)):
+        assert torch.equal(a[:, ~mask], old[:, ~mask])
+        assert torch.equal(b[:, ~mask], old[:, ~mask])
+        # int8: a value on a rounding tie may quantize one step apart
+        torch.testing.assert_close(
+            a.float(), b.float(), rtol=0,
+            atol=1.0 if a.dtype == torch.int8 else tol * 10)

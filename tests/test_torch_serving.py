@@ -115,13 +115,25 @@ def test_route_fn_and_unrouted_match():
         np.testing.assert_array_equal(tres.paths, jres.paths)
 
 
-def test_engine_options_not_ported_parts_raise():
+def test_engine_options_not_ported_parts_raise(tmp_path):
+    """``registry=`` still raises (the deploy plane is not ported);
+    ``telemetry=`` now records the continuous engine's ticks."""
+    from repro_torch.obs import Telemetry, read_trace
+    from repro_torch.serving import ContinuousBatchingEngine, Request
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TOptions(registry=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TOptions(telemetry=object())
     with pytest.raises(ValueError, match="not both"):
         TOptions(router=object(), route_fn=lambda p: 0)
+    _, tcfg, _, tpaths = _setup()
+    tel = Telemetry(tmp_path / "serve.jsonl", fresh=True)
+    eng = ContinuousBatchingEngine(tcfg, tpaths, options=TOptions(
+        cache_len=16, slots_per_path=1, telemetry=tel))
+    eng.serve_trace([Request(rid=0, prompt=np.arange(8), max_new=2)])
+    tel.close()
+    ticks = [r for r in read_trace(tmp_path / "serve.jsonl")[0]
+             if r.get("name") == "serve.tick"]
+    assert len(ticks) == eng.ticks == 2
+    assert ticks[-1]["args"] == {"tick": 2, "in_flight": 0, "finished": 1}
 
 
 def test_serve_launcher_runs_on_cpu(capsys):
