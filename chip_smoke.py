@@ -35,7 +35,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    documents of 1024 tokens -> prefix features -> k-means (K = 4) ->
    pre-sharding -> ``make_trainer(backend="vector")`` for a 2x2 DiPaCo
    (4 paths, 4 workers, batch 8 per worker), 2 phases of 4 inner steps
-   -> routed evaluation.  The loss must be finite and fall; every
+   -> routed evaluation, and frequent-token routing beside it
+   (``evaluate_rerouted``: the 64 validation documents re-routed every 64
+   tokens by the k-means router; both losses printed, ``router_assign``
+   launched once a chunk).  The loss must be finite and fall; every
    training kernel must launch as often as the path needs it.  One inner
    step's gradients through the kernels are compared with the plain
    attention's, leaf by leaf, in f32 and bf16.
@@ -52,10 +55,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 6. Training the SSM and token-MoE families at full width, in bf16 with
    ``attn_impl="pallas"`` and remat ``"full"``: ``make_trainer(backend=
    "vector")`` on synthetic documents of 1024 tokens, 2 phases of 2 inner
-   steps, for ``mamba2-1.3b`` as a 2-path flat DiPaCo cut to 24 of its
-   48 blocks (batch 4 a worker; 48 and 36 do not fit 80 GB with the
-   trainer's state) and ``qwen2-moe-a2.7b`` cut to 2 of its 24 blocks, one worker
-   (batch 4).  Each phase's mean loss must be finite and fall;
+   steps, for ``mamba2-1.3b`` as a 2-path flat DiPaCo at all 48 blocks
+   (batch 4 a worker; the inner and outer steps update the trainer's
+   state in place; the peak allocated memory is printed beside the 24-
+   block run's under the functional step, and running out of memory
+   prints what holds it and fails) and ``qwen2-moe-a2.7b`` cut to 2 of its
+   24 blocks, one worker (batch 4).  Each phase's mean loss must be
+   finite and fall;
    the SSD scan and its backward, the expert GEMM and its dX and dW, and
    the attention's LSE forward, dK/dV and dQ must launch as often as the
    blocks and steps need (remat's recompute included).  One inner step's
@@ -81,6 +87,43 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    slots, 16 requests): the stacked tick's tokens must equal the looped
    tick's.
 
+8. The §3 training service at full width, on phase 4's ``dipaco-150m``
+   (bf16, ``attn_impl="pallas"``), sharded documents and base weights,
+   cut to their first 2 of 12 blocks (every row moves a whole tree, and
+   at 12 blocks the phase writes about 110 GB, more than the 45 GiB of
+   writes a machine takes a run), a 2x2 DiPaCo with batch 8 a worker
+   and tau 4, its ``CheckpointDB`` under ``tempfile.mkdtemp()`` (the
+   run's own temporary directory), removed at the end; it fails if its
+   rows pass 40 GB.  ``make_trainer(backend="barrier")`` on 4 pool
+   threads for 2 phases against ``backend="vector"`` from the same
+   weights (per-phase losses and every path's parameters, leaf by leaf,
+   within the stated bf16 tolerance; phase seconds, row-write seconds and
+   the DB's bytes printed), and two barrier runs with a planted fault
+   (worker 0's weight halved; worker 0's delta lost) whose first phase
+   must break that tolerance; ``backend="service"`` with a staleness
+   window of 1, 4 fragments, the int8 wire and preemptions (p 0.2) on 4
+   threads for 3 phases, its outer step without momentum (at tau 4 the
+   default 0.9 overshoots by the third phase, more so with stale deltas;
+   the probe below shows it) (every path at phase 3, finite losses
+   falling phase after phase, at least one preemption, no handler error,
+   ``comm_stats()``: wire bytes against fp32; the third phase under
+   torch.profiler for the device busy share); and kill and resume on one
+   thread at lag 0: 3 phases uninterrupted, and the DB as it stood after
+   phase 2 (hard-linked, so its rows are written once) taken up by
+   ``resume`` for 1 more phase, whose path parameters and per-phase
+   losses must be equal bit for bit.  The attention kernels' launch
+   counts must match the workers' steps.
+
+``python3 chip_smoke.py --service-probe`` runs phase 4's pipeline and a
+probe of the stale service's loss (the vector trainer and the service
+on one thread at lag 0, at lag 1 and at lag 1 without outer momentum,
+at 12 blocks and at 2; at 2 also phase 8's service run twice at the
+default outer momentum), then
+phase 8, then phase 8's barrier and planted faults at 12 blocks.  At
+12 blocks a service run writes up to about 40 GB of rows under
+``TMPDIR``: give it a ``TMPDIR`` in memory (``/dev/shm``) that holds
+them.
+
 It prints one ``{"kernels": [...]}`` line before the card's line, with
 the backward kernels' rows too, and the last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA
@@ -92,8 +135,11 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -105,10 +151,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import make_trainer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import pytree  # noqa: E402
 from repro_torch.core.routing import (DiscriminativeRouter,  # noqa: E402
+                                      KMeansRouter, evaluate_rerouted,
                                       kmeans_assign, kmeans_fit,
                                       prefix_features)
 from repro_torch.data import SyntheticCorpus, shard_documents  # noqa: E402
+from repro_torch.infra import ckpt_db  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -123,8 +172,9 @@ from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
 from repro_torch.launch.steps import value_and_grad  # noqa: E402
 from repro_torch.models import api, moe_layer  # noqa: E402
 from repro_torch.models.config import DiPaCoConfig  # noqa: E402
-from repro_torch.models.params import tree_leaves  # noqa: E402
-from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
+from repro_torch.models.params import (LAYERS, param_axes,  # noqa: E402
+                                       tree_leaves)
+from repro_torch.optim import adamw_init, adamw_update_  # noqa: E402
 from repro_torch.obs import Telemetry, read_trace  # noqa: E402
 from repro_torch.serving import (PRIO_HIGH, PRIO_PREEMPTIBLE,  # noqa: E402
                                  ContinuousBatchingEngine, EngineOptions,
@@ -157,6 +207,9 @@ PROFILE_PROMPT = 16
 # batch per worker, inner steps per phase, phases, Lloyd iterations
 DOCS, DOC_LEN, TRAIN_PATHS, TRAIN_BATCH, TAU, PHASES, KMEANS_ITERS = \
     2048, 1024, 4, 8, 4, 2, 25
+# frequent-token routing in phase 4: re-route the validation documents
+# every 64 tokens
+REROUTE_TRAIN = 64
 # one inner step's gradients through the kernels vs the plain attention,
 # ||a - b|| / ||b|| per leaf after 12 blocks: f32 differs by summation
 # order; bf16 by the rounding of every activation on both paths
@@ -1347,10 +1400,12 @@ def train(cfg) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launched = counts()
+    rerouted = train_rerouted(tr, cfg, base, cents, val, evaluated)
     peak = torch.cuda.max_memory_allocated()
     W = tr.num_workers
     step_s = float(np.median(timer.seconds)) / W
     out = {"phases": phases, "routed_eval": evaluated,
+           "rerouted_eval": rerouted,
            "shard_sizes": ds.sizes.tolist(), "seconds": seconds,
            "inner_step_s_per_worker": step_s,
            "inner_step_s_all": timer.seconds,
@@ -1375,11 +1430,36 @@ def train(cfg) -> dict:
     assert launched["router_assign"] == KMEANS_ITERS + 2, launched
     assert launched["flash_attention"] > 0, launched
     out["device_busy_share"] = train_busy_share(tr)
+    return out, ds, base
+
+
+def train_rerouted(tr, cfg, base, cents, val, routed) -> dict:
+    """Frequent-token routing (paper §2.4.3) over the trained paths: the
+    validation documents re-routed every REROUTE_TRAIN tokens by the
+    k-means router (features of the previous chunk under the base
+    model), beside the route-once evaluation.  router_assign must launch
+    once a chunk."""
+    chunks = len(range(cfg.route_prefix_len, DOC_LEN, REROUTE_TRAIN))
+    reset_counts()
+    t0 = time.perf_counter()
+    out = evaluate_rerouted([tr.path_params(p) for p in range(TRAIN_PATHS)],
+                            cfg, KMeansRouter(cents), base, val,
+                            every=REROUTE_TRAIN)
+    torch.cuda.synchronize()
+    launched = counts()
+    out.update(every=REROUTE_TRAIN, chunks=chunks,
+               seconds=time.perf_counter() - t0, launches=launched)
+    print(f"[train reroute] route-once nll {routed['nll']:.4f}, re-routed "
+          f"every {REROUTE_TRAIN} tokens nll {out['nll']:.4f} (switch rate "
+          f"{out['switch_rate']:.3f}), launches {launched}", flush=True)
+    assert np.isfinite(out["nll"]), out
+    assert launched["router_assign"] == chunks, (launched, chunks)
+    assert launched["flash_attention"] > 0, launched
     return out
 
 
 def remat_cost(cfg) -> dict:
-    """One worker's inner step (loss, gradient, AdamW) at the training
+    """One worker's inner step (loss, gradient, in-place AdamW) at the training
     shape (TRAIN_BATCH x DOC_LEN), with remat as configured and without:
     the host-clock median of 7 steps after two warm-up steps, the device
     time of one more (profiled), and the peak device memory over the
@@ -1398,7 +1478,7 @@ def remat_cost(cfg) -> dict:
 
         def step():
             _, _, grads = value_and_grad(params, c, batch)
-            return adamw_update(grads, opt, params, lr=lr)
+            adamw_update_(grads, opt, params, lr=lr)    # the trainers' step
 
         for _ in range(2):
             step()
@@ -1478,17 +1558,18 @@ def train_grad_parity(cfg, dtype: str) -> dict:
 # Phase 6: training the SSM and token-MoE families
 # ---------------------------------------------------------------------------
 # (name, DiPaCo config, batch a worker, blocks or None for full depth):
-# mamba2-1.3b as a 2-path flat DiPaCo cut to 24 of its 48 blocks, widths
-# unchanged: the trainer keeps two workers' bf16 weights and f32 AdamW
-# moments, two paths' weights and their outer momentum, and its
-# functional inner step builds the new (W, ...) weights and moments
-# beside the old ones with one worker's f32 gradients and moments; that
-# passed the card's 80 GB at 48 blocks and at 36;
-# qwen2-moe-a2.7b cut to 2 of 24 blocks (full depth needs about 170 GB for
-# its weights and AdamW moments alone), one worker
-FAMILY_TRAIN = (("mamba2-1.3b", flat_moe_config(2, inner_steps=2), 4, 24),
+# mamba2-1.3b as a 2-path flat DiPaCo at all 48 blocks: the trainer keeps
+# two workers' bf16 weights and f32 AdamW moments, two paths' f32 weights
+# and their outer momentum (about 45 GiB), and its inner and outer steps
+# update them in place, in slabs of 2^24 elements; qwen2-moe-a2.7b cut
+# to 2 of 24 blocks (full depth needs about 170 GB for its weights and
+# AdamW moments alone), one worker
+FAMILY_TRAIN = (("mamba2-1.3b", flat_moe_config(2, inner_steps=2), 4, None),
                 ("qwen2-moe-a2.7b", diloco_config(1, inner_steps=2), 4, 2))
 FAMILY_TAU, FAMILY_PHASES, FAMILY_GRAD_DEPTH = 2, 2, 4
+# mamba2-1.3b's peak allocated memory at 24 blocks under the functional
+# inner step on the H100 (PERF.md section 5)
+MAMBA_24_BLOCK_PEAK_GIB = 60.39
 
 
 def train_family(name: str, dcfg, batch: int, depth) -> dict:
@@ -1518,9 +1599,22 @@ def train_family(name: str, dcfg, batch: int, depth) -> dict:
     timer = tr._step_fn = TimedStep(tr._step_fn)
     reset_counts()
     phases = []
-    for _ in range(FAMILY_PHASES):
-        m = tr.run_phase()
-        phases.append({"mean_loss": m.mean_loss, "final_loss": m.final_loss})
+    try:
+        for _ in range(FAMILY_PHASES):
+            m = tr.run_phase()
+            phases.append({"mean_loss": m.mean_loss,
+                           "final_loss": m.final_loss})
+    except torch.cuda.OutOfMemoryError:
+        # what holds the memory: the trainer's trees, then the allocator
+        held = {k: sum(t.numel() * t.element_size()
+                       for t in tree_leaves(getattr(tr, k))) / 2 ** 30
+                for k in ("worker_params", "global_params", "opt_state",
+                          "outer_state")}
+        print(f"[train {name}] out of memory at {cfg.num_layers} blocks: "
+              f"allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+              f"GiB, trainer state GiB {held}", flush=True)
+        print(torch.cuda.memory_summary(abbreviated=True), flush=True)
+        raise
     torch.cuda.synchronize()
     launched = counts()
     W = tr.num_workers
@@ -1548,6 +1642,10 @@ def train_family(name: str, dcfg, batch: int, depth) -> dict:
            "launches": launched, "expected_launches": want,
            "seconds": time.perf_counter() - t_start}
     print(f"[train {name}] {out}")
+    if name == "mamba2-1.3b":
+        print(f"[train {name}] peak allocated {out['peak_memory_gib']:.2f} "
+              f"GiB at {cfg.num_layers} blocks (24 blocks under the "
+              f"functional step: {MAMBA_24_BLOCK_PEAK_GIB} GiB)", flush=True)
     losses = [ph["mean_loss"] for ph in phases]
     assert all(np.isfinite(losses)) and losses[1] < losses[0], out
     assert {k: launched[k] for k in want} == want, (launched, want)
@@ -1819,6 +1917,430 @@ def continuous_mamba(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the §3 training service at full width
+# ---------------------------------------------------------------------------
+# phase 4's dipaco-150m (bf16, pallas, remat) at full width, its sharded
+# data and its base weights cut to SVC_DEPTH blocks; a 2x2 DiPaCo, batch
+# 8 a worker, tau 4.  (a) the barrier trainer on 4 pool threads against
+# the vector trainer, 2 phases, and two barrier runs with a planted fault
+# that the bound must catch; (b) the pipelined service: staleness window
+# 1, 4 fragments, int8 wire, preemptions, 3 phases; (c) kill and resume
+# on one thread at lag 0 (the reference's bit-exact setting)
+SVC_THREADS, SVC_PHASES, SVC_LAG, SVC_FRAGMENTS = 4, 3, 1, 4
+SVC_PREEMPT = 0.2
+# the pool draws its preemptions from random.Random(seed); seed 1's first
+# draw is 0.13, so the service run preempts at least once at p = 0.2
+SVC_SEED = 1
+# (b)'s outer step: Nesterov without momentum (outer lr 0.7).  With tau 4
+# (the paper's is 150) consecutive phases' deltas point nearly the same
+# way, and the default momentum 0.9 carries them past the minimum by the
+# third phase: the vector trainer's loss rises there too.  At lag 1 a
+# shard's next delta is taken from a snapshot that misses the others'
+# last deltas, so the same step is counted twice and the rise grows; the
+# JAX service does the same (tests/test_torch_service_stale.py).  On one
+# pool thread (H100, `--service-probe`), 12 blocks: 9.946, 8.516, 9.585
+# at momentum 0.9 and 9.946, 8.510, 7.847 without; 2 blocks: 9.764,
+# 7.937, 8.036 and 9.764, 7.989, 6.967
+SVC_OUTER_MOMENTUM = 0.0
+# Every row moves a whole tree (the workers' snapshots, deltas and AdamW
+# moments, the modules' params and momenta), and the DB lives in the
+# run's own temporary directory (tempfile), on the machine's disk, which
+# takes 45 GiB of writes a run, deleted files included.  At 12 blocks the
+# phase wrote about 110 GB (8.8 GB a barrier phase, 13.0 a service phase,
+# 9.6 a phase of the kill and resume runs; NVIDIA H100, PERF.md section
+# 5), so it runs the first 2 of the 12 blocks: 49M of the 150M
+# parameters (28.7M of them the tied embedding), about a third of the
+# bytes, and fails if its rows pass SVC_BUDGET_GB
+SVC_DEPTH = 2
+SVC_BUDGET_GB = 40.0
+# barrier vs vector in bf16.  The executors add the contributions in
+# commit order (the vector trainer's einsum in its own) and keep the
+# module store in bf16, where the vector trainer keeps f32 global copies
+# and rounds only the workers' copies: an outer step can land one bf16
+# rounding apart, and the next phase's deltas differ by the global
+# copy's rounding (half a bf16 step of each element).  Where such a
+# difference flips the sign of a near-zero gradient, AdamW moves the
+# element by up to 2 lr a step the other way (up to 0.012 over a phase
+# of this schedule, 0.016 after the outer step).  So, per leaf: the
+# largest |a - b| within 2^-5 of the largest |b| (8 bf16 steps; 0.0189
+# measured on the H100 at 2 blocks after 2 phases), and the mean |a - b|
+# within 2^-7 of the mean |b| (two bf16 roundings; 0.0020 measured).  A
+# wrong weight or a missed contribution moves elements by a share of a
+# phase's delta: the planted faults below must break one of the two
+# after one phase (their means measured 0.053 and 0.140, the sound
+# run's 1.7e-8).  Per-phase mean losses within 1e-2 (about 10 here)
+SVC_MAX_REL, SVC_MEAN_REL, SVC_LOSS_TOL = 2 ** -5, 2 ** -7, 1e-2
+# the planted faults, in every executor that worker 0 reports to:
+# "weight" halves its weight, "dropped" folds zeros for its delta (a
+# contribution that counts but was lost)
+SVC_FAULTS = ("weight", "dropped")
+
+
+def svc_kwargs(base, **over) -> dict:
+    kw = dict(base_params=base, batch_size=TRAIN_BATCH, peak_lr=2e-3,
+              warmup=TAU, total_steps=SVC_PHASES * TAU, device="cuda",
+              phase_timeout=600.0)
+    kw.update(over)
+    return kw
+
+
+def cut_depth(cfg, base, depth: int) -> tuple:
+    """``cfg`` and its weights cut to their first ``depth`` blocks."""
+    if depth == cfg.num_layers:
+        return cfg, base
+    cut = pytree.tree_map(
+        lambda leaf, ax: (leaf[:depth].clone() if ax and ax[0] == LAYERS
+                          else leaf), base, param_axes(cfg),
+        is_leaf=lambda x: isinstance(x, tuple))
+    return cfg.replace(num_layers=depth), cut
+
+
+def training_launches(cfg, steps: int) -> dict:
+    """The attention kernels' launches for ``steps`` worker steps (remat
+    runs the LSE forward twice a block and step)."""
+    forwards = 2 if cfg.remat else 1
+    return {"flash_attention_lse": forwards * cfg.num_layers * steps,
+            "flash_attention_dkv": cfg.num_layers * steps,
+            "flash_attention_dq": cfg.num_layers * steps}
+
+
+def check_launches(cfg, launched: dict, steps: int, what: str) -> None:
+    want = training_launches(cfg, steps)
+    got = {k: launched[k] for k in want}
+    assert got == want, (what, got, want)
+
+
+def path_leaves(tr, p: int) -> list:
+    return [x.detach().clone() for x in pytree.leaves(tr.path_params(p))]
+
+
+def param_rel(tr, ref_params) -> tuple:
+    """Over every path's leaves: the largest max|a - b| / max|b| and the
+    largest mean|a - b| / mean|b|."""
+    max_rel, mean_rel = [], []
+    for p in range(TRAIN_PATHS):
+        for a, b in zip(path_leaves(tr, p), ref_params[p]):
+            d, b = (a.float() - b.float()).abs(), b.float().abs()
+            max_rel.append(float(d.max() / b.max().clamp_min(1e-30)))
+            mean_rel.append(float(d.mean() / b.mean().clamp_min(1e-30)))
+    return max(max_rel), max(mean_rel)
+
+
+def io_since(before: dict) -> dict:
+    now = ckpt_db.io_stats()
+    return {k: now[k] - before[k] for k in now}
+
+
+def plant_fault(tr, fault: str) -> None:
+    execs = tr.service.execs
+    for ex in [*execs.execs.values(), execs.shared_exec]:
+        if ex is None or 0 not in ex.alphas:
+            continue
+        if fault == "weight":
+            ex.alphas[0] *= 0.5
+            continue
+
+        def fold(win, worker, tag, part, inner=ex._fold_locked):
+            if worker == 0:
+                part = {i: torch.zeros_like(x) for i, x in part.items()}
+            return inner(win, worker, tag, part)
+
+        ex._fold_locked = fold
+
+
+def service_phase(cfg, ds, base, root) -> dict:
+    """(a) backend="barrier" (4 threads) against backend="vector", 2
+    phases from the same base weights; per-phase seconds, row writes and
+    the DB's bytes.  Then each planted fault, one phase, must break the
+    bound against the vector trainer's first phase."""
+    dcfg = DiPaCoConfig(levels=(2, 2), inner_steps=TAU)
+    reset_counts()
+    vec = make_trainer(cfg, dcfg, ds, backend="vector", device="cuda",
+                       base_params=base, batch_size=TRAIN_BATCH, peak_lr=2e-3,
+                       warmup=TAU, total_steps=SVC_PHASES * TAU)
+    vec_losses, vec_params = [], []
+    for _ in range(PHASES):
+        vec_losses.append(vec.run_phase().mean_loss)
+        vec_params.append([path_leaves(vec, p) for p in range(TRAIN_PATHS)])
+    torch.cuda.synchronize()
+    check_launches(cfg, counts(), ds.num_shards * TAU * PHASES, "vector")
+    del vec
+    free_memory()
+    bar = make_trainer(cfg, dcfg, ds, backend="barrier",
+                       ckpt_root=str(root / "barrier"),
+                       **svc_kwargs(base, num_workers=SVC_THREADS))
+    try:
+        reset_counts()
+        phases = []
+        for ph in range(PHASES):
+            io0 = ckpt_db.io_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = bar.run_phase()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            io = io_since(io0)
+            max_rel, mean_rel = param_rel(bar, vec_params[ph])
+            phases.append({"mean_loss": m.mean_loss, "seconds": wall,
+                           "row_write_thread_s": io["d2h_s"] + io["write_s"],
+                           "d2h_thread_s": io["d2h_s"],
+                           "rows_written": io["rows_written"],
+                           "d2h_gb": io["d2h_bytes"] / 1e9,
+                           "file_gb": io["file_bytes"] / 1e9,
+                           "outer_updates": m["outer_updates"],
+                           "param_max_rel": max_rel,
+                           "param_mean_rel": mean_rel})
+        launched = counts()
+        check_launches(cfg, launched, ds.num_shards * TAU * PHASES, "barrier")
+        out = {"phases": phases, "vector_losses": vec_losses,
+               "param_max_rel": phases[-1]["param_max_rel"],
+               "param_mean_rel": phases[-1]["param_mean_rel"],
+               "tol": [SVC_MAX_REL, SVC_MEAN_REL, SVC_LOSS_TOL],
+               "db_gb": bar.db.nbytes() / 1e9,
+               "pool_errors": bar.service.pool.errors, "launches": launched}
+    finally:
+        bar.shutdown()
+    del bar
+    shutil.rmtree(root / "barrier", ignore_errors=True)
+    free_memory()
+    print(f"[service barrier] {out}", flush=True)
+    assert out["pool_errors"] == 0
+    for ph, vl in zip(phases, vec_losses):
+        assert abs(ph["mean_loss"] - vl) <= SVC_LOSS_TOL, (ph, vl)
+    assert out["param_max_rel"] <= SVC_MAX_REL, out
+    assert out["param_mean_rel"] <= SVC_MEAN_REL, out
+    out["planted_faults"] = {}
+    for fault in SVC_FAULTS:
+        bad = make_trainer(cfg, dcfg, ds, backend="barrier",
+                           ckpt_root=str(root / fault),
+                           **svc_kwargs(base, num_workers=SVC_THREADS))
+        try:
+            plant_fault(bad, fault)
+            loss = bad.run_phase().mean_loss
+            max_rel, mean_rel = param_rel(bad, vec_params[0])
+        finally:
+            bad.shutdown()
+        del bad
+        shutil.rmtree(root / fault, ignore_errors=True)
+        free_memory()
+        out["planted_faults"][fault] = {"mean_loss": loss,
+                                        "param_max_rel": max_rel,
+                                        "param_mean_rel": mean_rel}
+    print(f"[service barrier] planted faults after one phase (sound: "
+          f"{phases[0]['param_max_rel']:.5f} / "
+          f"{phases[0]['param_mean_rel']:.5f}): {out['planted_faults']}",
+          flush=True)
+    for fault, r in out["planted_faults"].items():
+        assert (r["param_max_rel"] > SVC_MAX_REL
+                or r["param_mean_rel"] > SVC_MEAN_REL), (fault, r)
+    return out
+
+
+def phase_losses(svc, shards: int) -> list:
+    return [float(np.mean([svc.losses[(t, s)] for s in range(shards)]))
+            for t in range(SVC_PHASES)]
+
+
+def service_async(cfg, ds, base, root) -> dict:
+    """(b) backend="service": staleness window 1, 4 fragments, int8 wire,
+    preemptions, 4 threads, 3 phases (the third under torch.profiler, for
+    the device busy share), the outer step without momentum; every path
+    reaches phase 3 with finite losses that fall phase after phase, the
+    pool preempts and counts no handler error."""
+    dcfg = DiPaCoConfig(levels=(2, 2), inner_steps=TAU,
+                        outer_fragments=SVC_FRAGMENTS, fragment_stagger=1,
+                        comm_dtype="int8", outer_momentum=SVC_OUTER_MOMENTUM)
+    svc = make_trainer(cfg, dcfg, ds, backend="service",
+                       ckpt_root=str(root / "service"),
+                       **svc_kwargs(base, num_workers=SVC_THREADS,
+                                    max_phase_lag=SVC_LAG,
+                                    preempt_prob=SVC_PREEMPT, seed=SVC_SEED))
+    try:
+        reset_counts()
+        io0 = ckpt_db.io_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.run(SVC_PHASES - 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        io = io_since(io0)
+        # the last phase under torch.profiler: the device busy share
+        prof = profiled(lambda: svc.run(1), 8, tracked=(
+            "flash_fwd_wgmma", "dkv_wgmma", "dq_wgmma"))
+        print(f"[service profile] one phase, {SVC_THREADS} threads: {prof}",
+              flush=True)
+        m = svc.run(0)
+        launched = counts()
+        losses = phase_losses(svc, ds.num_shards)
+        out = {"seconds_first_phases": wall, "phase_losses": losses,
+               "clocks": dict(svc.clock), "preemptions": svc.pool.preemptions,
+               "monitor_restarts": svc.monitor.restarts,
+               "pool_errors": svc.pool.errors,
+               "max_observed_lag": m["max_observed_lag"],
+               "outer_updates": m["outer_updates"],
+               "comm": svc.comm_stats(),
+               "row_write_thread_s": io["d2h_s"] + io["write_s"],
+               "rows_written": io["rows_written"],
+               "d2h_gb": io["d2h_bytes"] / 1e9,
+               "db_gb": svc.db.nbytes() / 1e9,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "launches": launched, "profiled_phase": prof}
+        print(f"[service async] {out}", flush=True)
+        assert svc.pool.errors == 0, svc.pool.last_error
+        assert all(svc.clock[s] == SVC_PHASES for s in range(ds.num_shards))
+        assert all(np.isfinite(losses)), losses
+        assert all(b < a for a, b in zip(losses, losses[1:])), losses
+        assert svc.pool.preemptions >= 1, out
+        check_launches(cfg, launched, ds.num_shards * TAU * SVC_PHASES,
+                       "service")
+        return out
+    finally:
+        svc.shutdown()
+
+
+def clone_db(src: Path, dst: Path) -> None:
+    """The DB as it stands, under another root, without writing its rows
+    again: each row's file hard-linked, ``rows.jsonl`` rewritten to name
+    the links.  It is what a process killed at this point leaves."""
+    dst.mkdir()
+    lines = []
+    for line in (src / "rows.jsonl").read_text().splitlines():
+        row = json.loads(line)
+        name = Path(row["file"]).name
+        os.link(row["file"], dst / name)
+        row["file"] = str(dst / name)
+        lines.append(json.dumps(row))
+    (dst / "rows.jsonl").write_text("".join(x + "\n" for x in lines))
+
+
+def service_resume(cfg, ds, base, root) -> dict:
+    """(c) one thread, lag 0: 3 phases uninterrupted; the DB as it stood
+    after phase 2 (a hard-linked clone: its rows are written once) taken
+    up by a new service through ``resume``, which runs 1 phase.  The
+    path parameters and the per-phase losses must be equal bit for
+    bit."""
+    dcfg = DiPaCoConfig(levels=(2, 2), inner_steps=TAU)
+    kw = svc_kwargs(base, num_workers=1, max_phase_lag=0)
+    out = {}
+    ref = make_trainer(cfg, dcfg, ds, backend="service",
+                       ckpt_root=str(root / "ref"), **kw)
+    try:
+        t0 = time.perf_counter()
+        ref.run(SVC_PHASES - 1)
+        clone_db(root / "ref", root / "killed")
+        ref.run(1)
+        out["uninterrupted_s"] = time.perf_counter() - t0
+        ref_params = [path_leaves(ref, p) for p in range(TRAIN_PATHS)]
+        ref_losses = dict(ref.losses)
+    finally:
+        ref.shutdown()
+    del ref
+    free_memory()
+    t0 = time.perf_counter()
+    res = make_trainer(cfg, dcfg, ds, backend="service",
+                       ckpt_root=str(root / "killed"), resume=True, **kw)
+    try:
+        out["resume_s"] = time.perf_counter() - t0
+        assert all(res.clock[s] == SVC_PHASES - 1
+                   for s in range(ds.num_shards)), res.clock
+        res.run(1)
+        same = [bool(torch.equal(a, b)) for p in range(TRAIN_PATHS)
+                for a, b in zip(path_leaves(res, p), ref_params[p])]
+        out.update(leaves_equal=sum(same), leaves=len(same),
+                   losses_equal=res.losses == ref_losses,
+                   pool_errors=res.pool.errors,
+                   cublas_workspace_config=os.environ.get(
+                       "CUBLAS_WORKSPACE_CONFIG"))
+        print(f"[service resume] {out}", flush=True)
+        assert res.pool.errors == 0, res.pool.last_error
+        assert all(same), out
+        assert res.losses == ref_losses, (res.losses, ref_losses)
+        return out
+    finally:
+        res.shutdown()
+
+
+def service(cfg, ds, base) -> dict:
+    cfg, base = cut_depth(cfg, base, SVC_DEPTH)
+    root = Path(tempfile.mkdtemp(prefix="dipaco-phase8-"))
+    io0 = ckpt_db.io_stats()
+    try:
+        out = {"depth": SVC_DEPTH, "ckpt_root": str(root),
+               "barrier": service_phase(cfg, ds, base, root)}
+        out["service"] = service_async(cfg, ds, base, root)
+        shutil.rmtree(root / "service", ignore_errors=True)
+        free_memory()
+        out["resume"] = service_resume(cfg, ds, base, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_memory()
+    out["file_gb"] = io_since(io0)["file_bytes"] / 1e9
+    print(f"[service] {SVC_DEPTH} of 12 blocks: {out['file_gb']:.2f} GB of "
+          f"rows written under {root}", flush=True)
+    assert out["file_gb"] <= SVC_BUDGET_GB, out["file_gb"]
+    return out
+
+
+def service_probe(cfg, ds, base) -> dict:
+    """``--service-probe`` (not part of the default run): where a stale
+    service's loss goes.  At 12 blocks and at SVC_DEPTH, 3 phases each of
+    the vector trainer and of the service on one pool thread (the queue
+    fixes the commit order) with (b)'s wire (int8, 4 fragments): at lag
+    0, at lag 1, and at lag 1 without outer momentum; at SVC_DEPTH also
+    twice (b)'s threads and preemptions at the default outer momentum
+    0.9 (the thread order's share of the rise).  Per-phase mean
+    losses, seconds and bytes of rows.  Each service run writes up to
+    about 40 GB of rows at 12 blocks under tempfile's directory (TMPDIR),
+    removed after the run."""
+    out = {}
+    for depth in sorted({cfg.num_layers, SVC_DEPTH}, reverse=True):
+        c, b = cut_depth(cfg, base, depth)
+        vec = make_trainer(c, DiPaCoConfig(levels=(2, 2), inner_steps=TAU),
+                           ds, backend="vector", device="cuda",
+                           base_params=b, batch_size=TRAIN_BATCH,
+                           peak_lr=2e-3, warmup=TAU,
+                           total_steps=SVC_PHASES * TAU)
+        res = {"vector": [vec.run_phase().mean_loss
+                          for _ in range(SVC_PHASES)]}
+        del vec
+        free_memory()
+        runs = [("lag0", 0, 0.9, 1, 0.0), ("lag1", 1, 0.9, 1, 0.0),
+                ("lag1_momentum0", 1, 0.0, 1, 0.0)]
+        if depth == SVC_DEPTH:
+            runs += [(f"b{i}", SVC_LAG, 0.9, SVC_THREADS, SVC_PREEMPT)
+                     for i in range(2)]
+        for name, lag, momentum, threads, preempt in runs:
+            dcfg = DiPaCoConfig(levels=(2, 2), inner_steps=TAU,
+                                outer_fragments=SVC_FRAGMENTS,
+                                fragment_stagger=1, comm_dtype="int8",
+                                outer_momentum=momentum)
+            root = tempfile.mkdtemp(prefix="dipaco-probe-")
+            svc = make_trainer(c, dcfg, ds, backend="service", ckpt_root=root,
+                               **svc_kwargs(b, num_workers=threads,
+                                            max_phase_lag=lag,
+                                            preempt_prob=preempt,
+                                            seed=SVC_SEED))
+            io0 = ckpt_db.io_stats()
+            t0 = time.perf_counter()
+            try:
+                svc.run(SVC_PHASES - 1)
+                svc.run(1)
+                res[name] = phase_losses(svc, ds.num_shards)
+                res[name + "_s"] = time.perf_counter() - t0
+                res[name + "_file_gb"] = io_since(io0)["file_bytes"] / 1e9
+                res[name + "_per_shard"] = {
+                    f"{t},{s}": v for (t, s), v in sorted(svc.losses.items())}
+            finally:
+                svc.shutdown()
+                shutil.rmtree(root, ignore_errors=True)
+            del svc
+            free_memory()
+        out[depth] = res
+        print(f"[service probe] {depth} blocks: {res}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1842,6 +2364,24 @@ def main() -> int:
                                        "spill")):
                 print(f"[ptxas {name}] {line.strip()}")
     tensor_core_sass()
+
+    if "--service-probe" in sys.argv[1:]:
+        cfg = get_config("dipaco-150m").replace(
+            attn_impl="pallas", dtype="bfloat16", route_prefix_len=32)
+        _, train_ds, train_base = train(cfg)
+        out = {"probe": service_probe(cfg, train_ds, train_base),
+               "service": service(cfg, train_ds, train_base)}
+        # phase 8's barrier against the vector trainer, and its planted
+        # faults, at all 12 blocks
+        root = Path(tempfile.mkdtemp(prefix="dipaco-probe-"))
+        try:
+            out["barrier_12_blocks"] = service_phase(cfg, train_ds,
+                                                     train_base, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        print(card)
+        print(json.dumps(out))
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_s = {"build": time.perf_counter() - t0}
@@ -1868,7 +2408,7 @@ def main() -> int:
     print(f"[phase] serve dipaco-150m: {phase_s['serve dipaco-150m']:.1f} s", flush=True)
     t0 = time.perf_counter()
 
-    trained = train(cfg.replace(route_prefix_len=32))
+    trained, train_ds, train_base = train(cfg.replace(route_prefix_len=32))
     trained["remat_cost"] = remat_cost(cfg.replace(route_prefix_len=32))
     grads = {dt: train_grad_parity(cfg, dt) for dt in ("float32", "bfloat16")}
     free_memory()
@@ -1930,6 +2470,19 @@ def main() -> int:
     cont = continuous(card)
     phase_s["continuous"] = time.perf_counter() - t0
     print(f"[phase] continuous: {phase_s['continuous']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    svc = service(cfg.replace(route_prefix_len=32), train_ds, train_base)
+    del train_base
+    phase_s["service"] = time.perf_counter() - t0
+    print(f"[phase] service: {phase_s['service']:.1f} s", flush=True)
+    for k in kernels:
+        if k["name"] in ("flash_attention_lse", "flash_attention_dkv",
+                         "flash_attention_dq"):
+            k["launches_barrier"] = svc["barrier"]["launches"][k["name"]]
+            k["launches_service"] = svc["service"]["launches"][k["name"]]
+        elif k["name"] == "router_assign":
+            k["launches_rerouted"] = trained["rerouted_eval"]["launches"][
+                "router_assign"]
     for k in kernels:
         if k["name"] == "flash_decode":
             k["launches_continuous"] = cont["eager"]["launches"][
@@ -1950,7 +2503,7 @@ def main() -> int:
     print(json.dumps({"serve": runs, "prefill_decode_parity": parity,
                       "train": trained, "train_grad_parity": grads,
                       "families": families, "continuous": cont,
-                      "phase_seconds": phase_s}))
+                      "service": svc, "phase_seconds": phase_s}))
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

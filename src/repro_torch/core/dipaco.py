@@ -19,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.diloco import outer_state_init, outer_step
+from repro_torch.core.diloco import outer_state_init, outer_step_
 from repro_torch.core.partition import make_partition, mixing_matrices
 from repro_torch.data.loader import ShardLoader, phase_batches
 from repro_torch.data.sharder import PreShardedDataset
@@ -112,20 +112,20 @@ class DiPaCoTrainer:
     @classmethod
     def resume(cls, cfg, dcfg, dataset, *, ckpt_root=None, **kw):
         """The in-memory trainer keeps no durable state to resume from;
-        the checkpointed backends are not ported yet (ROADMAP queue 1,
-        item 3)."""
+        the checkpointed backends ("barrier", "service") do."""
         raise NotImplementedError(
-            "DiPaCoTrainer is in-memory only and cannot resume; the "
-            "checkpointed backends are not ported to repro_torch yet "
-            "(ROADMAP queue 1, item 3)")
+            "DiPaCoTrainer is in-memory only and cannot resume; train with "
+            "make_trainer(backend='barrier' or 'service', ckpt_root=...) "
+            "and resume that")
 
     # ------------------------------------------------------------------
     def _outer(self):
         d = self.dcfg
-        return outer_step(self.worker_params, self.global_params,
-                          self.outer_state, self.axes, self.mix_layers,
-                          self.mix_shared, lr=d.outer_lr,
-                          momentum=d.outer_momentum, nesterov=d.outer_nesterov)
+        outer_step_(self.worker_params, self.global_params, self.outer_state,
+                    self.axes, self.mix_layers, self.mix_shared,
+                    lr=d.outer_lr, momentum=d.outer_momentum,
+                    nesterov=d.outer_nesterov)
+        return self.worker_params, self.global_params, self.outer_state
 
     def run_phase(self, tau: Optional[int] = None) -> PhaseMetrics:
         tau = tau or self.dcfg.inner_steps
@@ -192,34 +192,46 @@ class DiPaCoTrainer:
         return self._eval_worker(self.worker_of_path(i), tokens, best=best,
                                  batch_size=batch_size)
 
-    @torch.inference_mode()
     def _eval_worker(self, w: int, tokens, *, best: bool = False,
                      batch_size: int = 32) -> float:
         src = self.best_params if (best and self.best_params is not None) \
             else self.worker_params
-        params = row(src, w)
-        tokens = torch.as_tensor(tokens, device=self.device)
-        tot = torch.zeros((), dtype=torch.float64, device=self.device)
-        cnt = torch.zeros((), dtype=torch.float64, device=self.device)
-        for j in range(0, len(tokens), batch_size):
-            tk = tokens[j:j + batch_size]
-            logits, _ = apply_lm(params, self.cfg, tk)
-            nll, mask = lm_loss(logits, tk, self.cfg.route_prefix_len)
-            tot += nll.sum().double()
-            cnt += mask.sum().double()
-        return float(tot) / max(float(cnt), 1.0)
+        return mean_nll(row(src, w), self.cfg, tokens, batch_size)
 
     def evaluate_routed(self, docs, assignments, *, best: bool = False):
         """PPL with docs routed to shards (route-once evaluation)."""
-        assignments = np.asarray(assignments)
-        tot, cnt = 0.0, 0
-        for p in np.unique(assignments):
-            idx = np.nonzero(assignments == p)[0]
-            nll = self.eval_path(int(p), docs[idx], best=best)
-            tot += nll * len(idx)
-            cnt += len(idx)
-        nll = tot / max(cnt, 1)
-        return {"nll": nll, "ppl": float(np.exp(nll))}
+        return evaluate_routed(
+            lambda p, d: self.eval_path(p, d, best=best), docs, assignments)
+
+
+@torch.inference_mode()
+def mean_nll(params, cfg: ModelConfig, tokens, batch_size: int = 32) -> float:
+    """Mean NLL a token of ``tokens`` under ``params``, the routing prefix
+    excluded."""
+    device = tree_leaves(params)[0].device
+    tokens = torch.as_tensor(tokens, device=device)
+    tot = torch.zeros((), dtype=torch.float64, device=device)
+    cnt = torch.zeros((), dtype=torch.float64, device=device)
+    for j in range(0, len(tokens), batch_size):
+        tk = tokens[j:j + batch_size]
+        logits, _ = apply_lm(params, cfg, tk)
+        nll, mask = lm_loss(logits, tk, cfg.route_prefix_len)
+        tot += nll.sum().double()
+        cnt += mask.sum().double()
+    return float(tot) / max(float(cnt), 1.0)
+
+
+def evaluate_routed(eval_path, docs, assignments) -> dict:
+    """PPL with docs routed to paths (route-once evaluation);
+    ``eval_path(p, docs)`` is path p's mean NLL on its docs."""
+    assignments = np.asarray(assignments)
+    tot, cnt = 0.0, 0
+    for p in np.unique(assignments):
+        idx = np.nonzero(assignments == p)[0]
+        tot += eval_path(int(p), docs[idx]) * len(idx)
+        cnt += len(idx)
+    nll = tot / max(cnt, 1)
+    return {"nll": nll, "ppl": float(np.exp(nll))}
 
 
 class SyncDiPaCoTrainer(DiPaCoTrainer):

@@ -9,6 +9,7 @@ caller that needs the reference's clustering passes ``init=``.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -38,6 +39,18 @@ def kmeans_assign(z, centroids):
     is the minimum, which the kernel gives directly."""
     a, mind2 = ops.router_assign(z, centroids)
     return a.long(), mind2
+
+
+@dataclass
+class KMeansRouter:
+    """Eq. 1 as a router: ``assign(z)`` is the nearest centroid (the
+    ``router_assign`` kernel on the card), for the routers' callers
+    (``frequent.chunk_choices``)."""
+    centroids: torch.Tensor      # (K, D)
+
+    def assign(self, z):
+        z = torch.as_tensor(z, device=self.centroids.device)
+        return kmeans_assign(z, self.centroids.to(z.dtype))[0]
 
 
 def squared_distances(z, centroids):

@@ -3,11 +3,14 @@ port's own copy of ``repro/data/sharder.py``.
 
 Sharding happens BEFORE training: each document's routing decision is
 computed offline and the document is appended to its shard (or its top-n
-shards when overlapping, §2.4.4).  Persisting shards (``save``/``load``)
-waits for the checkpoint slice of the port.
+shards when overlapping, §2.4.4).  Shards can be persisted as .npz for
+the infra workers, in the reference's files: either package reads the
+other's.
 """
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -29,6 +32,35 @@ class PreShardedDataset:
         """Shard-size weights (Eq. 3)."""
         sz = self.sizes.astype(np.float64)
         return sz / max(sz.sum(), 1.0)
+
+    def save(self, path: str):
+        os.makedirs(path, exist_ok=True)
+        for i, s in enumerate(self.shards):
+            np.savez_compressed(os.path.join(path, f"shard_{i:04d}.npz"),
+                                tokens=s)
+            if self.holdouts:
+                np.savez_compressed(
+                    os.path.join(path, f"holdout_{i:04d}.npz"),
+                    tokens=self.holdouts[i])
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump({"num_shards": self.num_shards,
+                       "sizes": self.sizes.tolist(),
+                       "holdout_frac": self.holdout_frac}, f)
+
+    @classmethod
+    def load(cls, path: str):
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        shards, holdouts = [], []
+        for i in range(meta["num_shards"]):
+            shards.append(np.load(
+                os.path.join(path, f"shard_{i:04d}.npz"))["tokens"])
+            hp = os.path.join(path, f"holdout_{i:04d}.npz")
+            if os.path.exists(hp):
+                holdouts.append(np.load(hp)["tokens"])
+        return cls(shards=shards, assignments=np.zeros(0, np.int32),
+                   num_shards=meta["num_shards"],
+                   holdout_frac=meta["holdout_frac"], holdouts=holdouts)
 
 
 def shard_documents(docs: np.ndarray, assignments, num_shards: int, *,

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -25,6 +26,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}     # name -> ctypes.CDLL, loaded once per process
+# ``load`` builds and opens each library once, whichever thread asks first
+_load_lock = threading.Lock()
+# the wrappers' launch counters are bumped from every thread that trains
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -60,7 +65,8 @@ def build(names=SOURCES) -> dict:
         if out.exists():
             reports[name] = ""
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # one name per process and thread: two builders never share a file
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -104,11 +110,23 @@ def check_rc(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a kernel was launched)."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built if missing; built and
+    opened once however many threads ask for it at the same time."""
     lib = _loaded.get(name)
-    if lib is None:
-        path = lib_path(name)
-        if not path.exists():
-            build((name,))
-        lib = _loaded[name] = ctypes.CDLL(str(path))
+    if lib is not None:
+        return lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = lib_path(name)
+            if not path.exists():
+                build((name,))
+            lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib

@@ -140,7 +140,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                 _KV_DTYPE[k_cache.dtype],
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check_rc(rc, "flash_decode")
-    flash_decode.launches += 1
+    build.count_launch(flash_decode)
     return out
 
 

@@ -70,7 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 b, s, h, kh, d, int(causal), window or 0, DTYPES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check_rc(rc, "flash_attention")
-    flash_attention.launches += 1
+    build.count_launch(flash_attention)
     return out
 
 

@@ -53,7 +53,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr(), b, s, h, kh, d, int(causal), window or 0,
         DTYPES[q.dtype], _stream(q))
     build.check_rc(rc, "flash_attention_lse")
-    flash_attention_lse.launches += 1
+    build.count_launch(flash_attention_lse)
     return out, lse
 
 
@@ -87,7 +87,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
         b, s, h, kh, d, int(causal), window or 0, DTYPES[q.dtype],
         _stream(q))
     build.check_rc(rc, "flash_attention_dkv")
-    flash_attention_dkv.launches += 1
+    build.count_launch(flash_attention_dkv)
     return dk, dv
 
 
@@ -102,7 +102,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool = True,
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, h, kh, d,
         int(causal), window or 0, DTYPES[q.dtype], _stream(q))
     build.check_rc(rc, "flash_attention_dq")
-    flash_attention_dq.launches += 1
+    build.count_launch(flash_attention_dq)
     return dq
 
 

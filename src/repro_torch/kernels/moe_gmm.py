@@ -70,7 +70,7 @@ def expert_gemm(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                 DTYPES[xe.dtype],
                 torch.cuda.current_stream(xe.device).cuda_stream)
     build.check_rc(rc, "expert_gemm")
-    expert_gemm.launches += 1
+    build.count_launch(expert_gemm)
     return out
 
 
@@ -84,7 +84,7 @@ def expert_gemm_dx(dy: torch.Tensor, w: torch.Tensor,
         dy.data_ptr(), w.data_ptr(), dx.data_ptr(), e, c, d, f,
         DTYPES[dy.dtype], torch.cuda.current_stream(dy.device).cuda_stream)
     build.check_rc(rc, "expert_gemm_dx")
-    expert_gemm_dx.launches += 1
+    build.count_launch(expert_gemm_dx)
     return dx
 
 
@@ -99,7 +99,7 @@ def expert_gemm_dw(xe: torch.Tensor, dy: torch.Tensor,
         xe.data_ptr(), dy.data_ptr(), dw.data_ptr(), e, c, d, f,
         DTYPES[xe.dtype], torch.cuda.current_stream(xe.device).cuda_stream)
     build.check_rc(rc, "expert_gemm_dw")
-    expert_gemm_dw.launches += 1
+    build.count_launch(expert_gemm_dw)
     return dw
 
 

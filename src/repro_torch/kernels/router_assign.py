@@ -58,7 +58,7 @@ def router_assign(z: torch.Tensor, centroids: torch.Tensor) -> tuple:
                 mind2.data_ptr(), work.data_ptr(), n, k, d, DTYPES[z.dtype],
                 torch.cuda.current_stream(z.device).cuda_stream)
     build.check_rc(rc, "router_assign")
-    router_assign.launches += 1
+    build.count_launch(router_assign)
     return assign, mind2
 
 

@@ -112,7 +112,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         DTYPES[x.dtype], int(states),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check_rc(rc, "ssd_scan")
-    ssd_scan.launches += 1
+    build.count_launch(ssd_scan)
     return (y, final, starts) if states else (y, final)
 
 
@@ -160,7 +160,7 @@ def ssd_scan_bwd(x, dt, a, bmat, cmat, dy, dstate, starts, *,
         n, chunk, DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check_rc(rc, "ssd_scan_bwd")
-    ssd_scan_bwd.launches += 1
+    build.count_launch(ssd_scan_bwd)
     return dx, ddt, da, db, dc
 
 

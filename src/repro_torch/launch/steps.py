@@ -5,8 +5,10 @@
 Worker trees hold (W, ...) leaves.  The reference ``vmap``s one worker's
 step over W; here a Python loop walks the workers, because
 ``torch.func.vmap`` cannot pass through a ctypes kernel or a custom
-autograd Function without a vmap rule.  Each step is functional: it
-returns new trees and leaves its inputs as they were.
+autograd Function without a vmap rule.  Each step updates worker w's row
+of the stacked weights and AdamW moments in place (``adamw_update_``,
+the same bits as the reference's functional update), once w's backward
+has finished, and returns the same trees.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
-from repro_torch.optim import adamw_update
+from repro_torch.optim import adamw_update_
 
 
 def row(tree, i: int):
@@ -34,18 +36,6 @@ def value_and_grad(params, cfg: ModelConfig, batch) -> tuple:
         tree_unflatten(params, grads)
 
 
-def _worker_loop(worker_params, opt_state, num_workers: int, per_worker):
-    """Run ``per_worker(w, params_w, opt_w) -> (params, opt)`` for every
-    worker into fresh (W, ...) trees."""
-    new_params = tree_map(torch.empty_like, worker_params)
-    new_opt = tree_map(torch.empty_like, opt_state)
-    for w in range(num_workers):
-        p, o = per_worker(w, row(worker_params, w), row(opt_state, w))
-        tree_map(lambda dst, src: dst.copy_(src), row(new_params, w), p)
-        tree_map(lambda dst, src: dst.copy_(src), row(new_opt, w), o)
-    return new_params, new_opt
-
-
 def _worker_batch(batch, w: int) -> dict:
     return {k: v[w] for k, v in batch.items()}
 
@@ -58,21 +48,19 @@ def make_inner_train_step(cfg: ModelConfig):
     """(worker_params, opt_state, batch, lr) -> (params, opt, metrics).
 
     worker_params: (W, ...) stacked; opt_state: per-worker AdamW state,
-    stacked the same way; batch: dict of (W, B_local, ...) tensors.
-    metrics["loss"] is (W,).
+    stacked the same way; both are updated in place and returned.
+    batch: dict of (W, B_local, ...) tensors.  metrics["loss"] is (W,).
     """
     def step(worker_params, opt_state, batch, lr):
         metrics = []
-
-        def one_worker(w, params, opt):
+        for w in range(batch["tokens"].shape[0]):
+            params = row(worker_params, w)
             loss, parts, grads = value_and_grad(params, cfg,
                                                 _worker_batch(batch, w))
             metrics.append({"loss": loss, **parts})
-            return adamw_update(grads, opt, params, lr=lr)
-
-        new_params, new_opt = _worker_loop(
-            worker_params, opt_state, batch["tokens"].shape[0], one_worker)
-        return new_params, new_opt, _stack_metrics(metrics)
+            adamw_update_(grads, row(opt_state, w), params, lr=lr)
+            del grads
+        return worker_params, opt_state, _stack_metrics(metrics)
 
     return step
 
@@ -94,9 +82,9 @@ def make_sync_train_step(cfg: ModelConfig, mix_layers, mix_shared, axes):
         mixed = mix_deltas(tree_map(lambda *gs: torch.stack(gs), *grads),
                            axes, mix_layers, mix_shared)
         del grads
-        new_params, new_opt = _worker_loop(
-            worker_params, opt_state, W,
-            lambda w, p, o: adamw_update(row(mixed, w), o, p, lr=lr))
-        return new_params, new_opt, _stack_metrics(metrics)
+        for w in range(W):
+            adamw_update_(row(mixed, w), row(opt_state, w),
+                          row(worker_params, w), lr=lr)
+        return worker_params, opt_state, _stack_metrics(metrics)
 
     return step

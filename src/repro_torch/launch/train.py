@@ -1,26 +1,32 @@
-"""Training launcher of the port (``--backend vector``): the quickstart
-pipeline corpus -> prefix features -> k-means -> pre-sharding ->
-DiLoCo-per-module phases -> routed evaluation.
+"""Training launcher of the port: the quickstart pipeline corpus ->
+prefix features -> k-means -> pre-sharding -> DiLoCo-per-module phases
+-> routed evaluation, through ``make_trainer(backend=...)``.
 
     # dipaco-150m at full width, on the card
     PYTHONPATH=src python -m repro_torch.launch.train --levels 2x2 \
         --phases 2 --tau 10
 
+    # the §3 service: 4 pool threads, staleness window 1, int8 wire
+    PYTHONPATH=src python -m repro_torch.launch.train --backend service \
+        --num-workers 4 --max-phase-lag 1 --comm-dtype int8 --fragments 4
+
     # the smoke config on the CPU (plain attention and k-means, no kernels)
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke
 
-Only the ``vector`` backend of ``repro.launch.train`` is ported; the
-mesh, service and barrier backends wait for ROADMAP queue 1, item 3.
+Backends ``vector``, ``barrier`` and ``service`` of ``repro.launch.train``
+are ported; ``mesh`` waits for ROADMAP queue 1, item 3.
 """
 from __future__ import annotations
 
 import argparse
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.dipaco import evaluate_routed, mean_nll
 from repro_torch.core.routing import kmeans_assign, kmeans_fit, prefix_features
 from repro_torch.data import SyntheticCorpus, shard_documents
 from repro_torch.device import resolve_device
@@ -43,6 +49,26 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default: cuda; it "
                          "raises where there is no card)")
+    ap.add_argument("--backend", default="vector",
+                    choices=("vector", "barrier", "service"),
+                    help="trainer backend (repro_torch.make_trainer); "
+                         "'service'/'barrier' run the checkpointed "
+                         "worker-pool infrastructure")
+    ap.add_argument("--ckpt-root", default=None,
+                    help="CheckpointDB root for service/barrier; a "
+                         "temporary directory is created when omitted")
+    ap.add_argument("--num-workers", type=int, default=4,
+                    help="pool threads for --backend service/barrier")
+    ap.add_argument("--max-phase-lag", type=int, default=1,
+                    help="staleness window for --backend service")
+    ap.add_argument("--fragments", type=int, default=1,
+                    help="outer fragments K (streaming sync)")
+    ap.add_argument("--comm-dtype", default="fp32",
+                    choices=("fp32", "int8", "int4"))
+    ap.add_argument("--comm-dtype-policy", default="uniform",
+                    choices=("uniform", "leafwise"),
+                    help="'leafwise' quantizes large matmul leaves hard "
+                         "(int4) but keeps norms/embeddings in fp32")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
@@ -66,20 +92,42 @@ def main(argv=None) -> dict:
     ds = shard_documents(docs, assign.cpu().numpy(), P)
     print(f"[launch] shard sizes {ds.sizes.tolist()}")
 
-    dcfg = DiPaCoConfig(levels=levels, inner_steps=args.tau)
-    tr = make_trainer(cfg, dcfg, ds, device=device,
+    dcfg = DiPaCoConfig(levels=levels, inner_steps=args.tau,
+                        outer_fragments=args.fragments,
+                        comm_dtype=args.comm_dtype,
+                        comm_dtype_policy=args.comm_dtype_policy)
+    kw: dict = {}
+    if args.backend != "vector":
+        kw["ckpt_root"] = args.ckpt_root or tempfile.mkdtemp(
+            prefix="dipaco-ckpt-")
+        kw["num_workers"] = args.num_workers
+        print(f"[launch] backend={args.backend} ckpt_root={kw['ckpt_root']}")
+        if args.backend == "service":
+            kw["max_phase_lag"] = args.max_phase_lag
+    tr = make_trainer(cfg, dcfg, ds, backend=args.backend, device=device,
                       base_params=base, batch_size=args.batch_size,
                       peak_lr=2e-3, warmup=args.tau,
-                      total_steps=args.phases * args.tau)
+                      total_steps=args.phases * args.tau, **kw)
     t0 = time.time()
     losses = []
-    for ph in range(args.phases):
-        m = tr.run_phase()
-        losses.append(m.mean_loss)
-        print(f"[phase {ph}] loss {m.mean_loss:.4f} "
-              f"({time.time() - t0:.1f}s)")
-    va, _ = kmeans_assign(prefix_features(base, cfg, val), cents)
-    res = tr.evaluate_routed(val, va.cpu().numpy())
+    try:
+        for ph in range(args.phases):
+            if args.backend == "service":
+                loss = tr.run(1)["mean_loss"]     # pipelined, no barrier
+            else:
+                loss = tr.run_phase().mean_loss
+            losses.append(loss)
+            print(f"[phase {ph}] loss {loss:.4f} "
+                  f"({time.time() - t0:.1f}s)")
+        if args.backend == "service":
+            print(f"[comm] {tr.comm_stats()}")
+        va, _ = kmeans_assign(prefix_features(base, cfg, val), cents)
+        res = evaluate_routed(
+            lambda p, d: mean_nll(tr.path_params(p), cfg, d), val,
+            va.cpu().numpy())
+    finally:
+        if args.backend != "vector":
+            tr.shutdown()
     print(f"[eval] routed validation PPL {res['ppl']:.2f}")
     print("[done]")
     return {"phase_loss": losses, **res}

@@ -5,10 +5,19 @@
                                   seed=0, device="cuda", batch_size=8)
     m = tr.run_phase()
 
-Only ``"vector"`` (``core.dipaco.DiPaCoTrainer``, the in-memory
-stacked-worker simulation of Algorithm 1) is ported.  ``"barrier"``,
-``"service"`` and ``"mesh"`` need the checkpoint plane and multi-process
-training (ROADMAP queue 1, item 3) and raise ``NotImplementedError``.
+Backends:
+
+``"vector"``   core.dipaco.DiPaCoTrainer — in-memory stacked-worker
+               simulation (Algorithm 1); no durable state.
+``"barrier"``  infra.trainer.InfraDiPaCoTrainer — the round-based §3
+               infrastructure pinned to a global barrier
+               (max_phase_lag=0); CheckpointDB resume.
+``"service"``  infra.service.TrainingService — asynchronous
+               phase-pipelined service with staleness window, fragment
+               streaming and delta transports; CheckpointDB resume.
+
+``"mesh"`` needs multi-process training on ``torch.distributed``
+(ROADMAP queue 1, item 3) and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,26 +25,52 @@ from repro_torch.core.dipaco import DiPaCoTrainer, PhaseMetrics
 
 BACKENDS = ("vector", "barrier", "service", "mesh")
 
-__all__ = ["BACKENDS", "PhaseMetrics", "make_trainer"]
+__all__ = ["BACKENDS", "PhaseMetrics", "make_trainer", "trainer_class"]
+
+
+def trainer_class(backend: str):
+    if backend == "vector":
+        return DiPaCoTrainer
+    if backend == "barrier":
+        from repro_torch.infra.trainer import InfraDiPaCoTrainer
+        return InfraDiPaCoTrainer
+    if backend == "service":
+        from repro_torch.infra.service import TrainingService
+        return TrainingService
+    if backend == "mesh":
+        raise NotImplementedError(
+            "backend 'mesh' is not ported to repro_torch yet: it needs "
+            "multi-process training on torch.distributed (ROADMAP queue 1, "
+            "item 3); use backend='vector', 'barrier' or 'service'")
+    raise ValueError(f"backend {backend!r} not in {BACKENDS}")
 
 
 def make_trainer(cfg, dcfg, dataset, *, backend: str = "vector",
                  seed: int = 0, device="cuda", ckpt_root: str | None = None,
-                 resume: bool = False, **kw) -> DiPaCoTrainer:
-    """Construct a trainer backend.  Remaining kwargs go to the backend's
-    constructor (base_params, batch_size, peak_lr, warmup, total_steps).
-    Parameters are made on ``device`` (default ``"cuda"``; it raises
-    where there is no card) unless ``base_params`` are given."""
-    if backend not in BACKENDS:
-        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
-    if backend != "vector":
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported to repro_torch yet: it needs "
-            f"the checkpoint plane and multi-process training (ROADMAP "
-            f"queue 1, item 3); use backend='vector'")
-    if ckpt_root is not None:
-        raise ValueError("backend='vector' is in-memory only and takes no "
-                         "ckpt_root")
+                 resume: bool = False, **kw):
+    """Construct (or resume) a trainer backend.
+
+    ``ckpt_root`` is required for the DB-backed backends ("barrier",
+    "service") and rejected for "vector".  Remaining kwargs go to the
+    backend's constructor (base_params, batch_size, peak_lr, warmup,
+    total_steps, and backend-specific ones like num_workers /
+    max_phase_lag).  Parameters are made on, or moved to, ``device``
+    (default ``"cuda"``; it raises where there is no card); the vector
+    backend keeps given ``base_params`` on their own device.
+    """
+    cls = trainer_class(backend)
+    if backend == "vector":
+        if ckpt_root is not None:
+            raise ValueError("backend='vector' is in-memory only and takes "
+                             "no ckpt_root")
+        if resume:
+            return cls.resume(cfg, dcfg, dataset)    # raises, on purpose
+        return cls(cfg, dcfg, dataset, seed=seed, device=device, **kw)
+    if ckpt_root is None:
+        raise ValueError(f"backend={backend!r} persists to a CheckpointDB: "
+                         "pass ckpt_root=")
     if resume:
-        return DiPaCoTrainer.resume(cfg, dcfg, dataset)   # raises, on purpose
-    return DiPaCoTrainer(cfg, dcfg, dataset, seed=seed, device=device, **kw)
+        return cls.resume(cfg, dcfg, dataset, seed=seed, device=device,
+                          ckpt_root=ckpt_root, **kw)
+    return cls(cfg, dcfg, dataset, seed=seed, device=device,
+               ckpt_root=ckpt_root, **kw)
