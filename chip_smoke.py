@@ -114,6 +114,37 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    losses must be equal bit for bit.  The attention kernels' launch
    counts must match the workers' steps.
 
+9. The deployment plane (``repro_torch.deploy``), the engines' hot swap
+   and the serving fleet, under one ``tempfile.mkdtemp()`` removed at
+   the end.  (a) ``dipaco-150m`` at full width (bf16, ``attn_impl=
+   "pallas"``, a 2x2 partition, 4 paths): a ``DeploymentRegistry``
+   whose v1 is the base; ``ShardedOuterExecutors`` apply one outer phase
+   of small random deltas, and ``Publisher.publish_cycle`` with a
+   ``CanaryGate`` scores it on the card and promotes v2 while a request
+   is in flight on the continuous engine, whose dense tick was captured
+   in a CUDA graph at v1.  The drain swap: the 4 requests admitted after
+   it (one an island, decoded through graph replays) must equal a fresh
+   eager engine's on v2 and differ from v1's; a second candidate of
+   planted noise rows must be rejected and quarantined; a rollback to v1
+   installed live must flag the requests in flight, leave the engine's
+   weights bit-equal to ``materialize(v1)`` and give the v1 run's tokens
+   again; the one-shot engine follows one promote.  torch.profiler must
+   see 12 flash-decode kernels in each replay after the swaps; flash
+   attention launches once a block for each canary forward, flash decode
+   once a block for each decode the host dispatched.  (b) phase 8's cut
+   (2 of 12 blocks): one barrier phase on one pool thread, on a thread
+   of its own, while the engine serves a stream of requests; the
+   publisher's background thread promotes the outer update within one
+   canary cycle, the engine swaps to it, and every kernel launches as
+   the steps, canary forwards and decodes need.  (c) ``ServingFleet(
+   size=2, backend="process")`` on (a)'s registry: two spawned engine
+   processes on the card whose tokens must equal the in-process fleet's
+   on 8 requests half a second apart, and one promote must move both
+   (``wait_version``).  Prints the install seconds and the ticks around
+   each swap, the canary and publish-to-servable seconds, the bytes
+   written and the phase's seconds; fails above 8 GB written, or above
+   44 GB with phase 8's rows.
+
 ``python3 chip_smoke.py --service-probe`` runs phase 4's pipeline and a
 probe of the stale service's loss (the vector trainer and the service
 on one thread at lag 0, at lag 1 and at lag 1 without outer momentum,
@@ -122,7 +153,8 @@ default outer momentum), then
 phase 8, then phase 8's barrier and planted faults at 12 blocks.  At
 12 blocks a service run writes up to about 40 GB of rows under
 ``TMPDIR``: give it a ``TMPDIR`` in memory (``/dev/shm``) that holds
-them.
+them.  ``python3 chip_smoke.py --deploy`` runs phase 4's pipeline and
+then phase 9 alone.
 
 It prints one ``{"kernels": [...]}`` line before the card's line, with
 the backward kernels' rows too, and the last line is ``{"ok": true,
@@ -140,6 +172,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -152,12 +185,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import make_trainer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import pytree  # noqa: E402
+from repro_torch.core.module_store import ModuleStore  # noqa: E402
 from repro_torch.core.routing import (DiscriminativeRouter,  # noqa: E402
                                       KMeansRouter, evaluate_rerouted,
                                       kmeans_assign, kmeans_fit,
                                       prefix_features)
 from repro_torch.data import SyntheticCorpus, shard_documents  # noqa: E402
-from repro_torch.infra import ckpt_db  # noqa: E402
+from repro_torch.deploy import (CanaryGate, DeploymentRegistry,  # noqa: E402
+                                Publisher)
+from repro_torch.infra import ShardedOuterExecutors, ckpt_db  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -178,8 +214,8 @@ from repro_torch.optim import adamw_init, adamw_update_  # noqa: E402
 from repro_torch.obs import Telemetry, read_trace  # noqa: E402
 from repro_torch.serving import (PRIO_HIGH, PRIO_PREEMPTIBLE,  # noqa: E402
                                  ContinuousBatchingEngine, EngineOptions,
-                                 PathServingEngine, poisson_trace,
-                                 prefix_hash_router)
+                                 PathServingEngine, Request, ServingFleet,
+                                 poisson_trace, prefix_hash_router)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth and
 # the rate for each input type (bf16 and TF32 on the tensor cores, f32
@@ -2341,6 +2377,535 @@ def service_probe(cfg, ds, base) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the deployment plane, hot swaps under the CUDA-graph tick, the
+# serving fleet
+# ---------------------------------------------------------------------------
+# the device of phase 9 (tests/test_torch_chip_phase9.py rehearses its
+# control flow on the CPU; on the card every check below runs)
+DEV9 = "cuda"
+# the deployment's base-init seed: a fleet member rebuilds the base
+# weights from it
+DEPLOY_SEED = 9
+# (a)'s engine: 4 paths of 8 slots over a 256-token ring; requests of 64
+# prompt tokens and 16 new
+DEPLOY_SLOTS, DEPLOY_CACHE, DEPLOY_PROMPT, DEPLOY_NEW = 8, 256, 64, 16
+# each worker's outer delta in (a): normal, this std (the weights' own
+# is about 0.02 to 0.03); the planted candidate's module rows: normal
+# noise of this std in place of every weight
+DEPLOY_DELTA, DEPLOY_NOISE = 1e-3, 1.0
+# the canary: 16 shadow documents of 128 tokens; a candidate passes with
+# a shadow perplexity within 5% of the serving version's (greedy
+# agreement is reported, not gated: a random model's near-flat logits
+# flip their argmax under any change)
+DEPLOY_SHADOW, DEPLOY_PPL_TOL = (16, 128), 1.05
+# (c): 2 engine processes of 4 slots a path over a 128-token ring; 8
+# requests half a second apart (each served alone, so that both fleets
+# decode each request through the same sparse ticks)
+FLEET_SIZE, FLEET_SLOTS, FLEET_CACHE, FLEET_GAP = 2, 4, 128, 0.5
+# bytes: module rows (params bf16 + momentum f32, 1.63 GB a phase at 12
+# blocks) and the registry's copy of each, the planted candidate's
+# params-only rows (0.54 GB) and their copy, (b)'s barrier phase at 2
+# blocks (2.76 GB in phase 8) and the copy of its module rows (0.41 GB):
+# about 7.5 GB.  Phase 9 fails above DEPLOY_BUDGET_GB, and phases 8 and 9
+# together above DEPLOY_TOTAL_GB (kept under a 45 GiB cap on one run's
+# disk writes)
+DEPLOY_BUDGET_GB, DEPLOY_TOTAL_GB = 8.0, 44.0
+PHASE9_DIR = Path(__file__).resolve().parent / "build" / "phase9"
+
+
+def sync9() -> None:
+    if DEV9 == "cuda":
+        torch.cuda.synchronize()
+
+
+class TimedGate(CanaryGate):
+    """The canary gate, counting its forwards (one a path with shadow
+    documents, each launching flash attention once a block) and timing
+    each evaluation."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.forwards, self.seconds = 0, []
+
+    def _score(self, params, toks):
+        self.forwards += 1
+        return super()._score(params, toks)
+
+    def evaluate(self, candidate_paths, serving_paths):
+        t0 = time.perf_counter()
+        rep = super().evaluate(candidate_paths, serving_paths)
+        sync9()
+        self.seconds.append(time.perf_counter() - t0)
+        return rep
+
+
+def time_installs(eng) -> None:
+    """Record the seconds of each hot-swap install in ``eng.install_s``
+    (the card synchronized on both sides)."""
+    eng.install_s = []
+    inner = eng._install
+
+    def install(version, paths):
+        sync9()
+        t0 = time.perf_counter()
+        inner(version, paths)
+        sync9()
+        eng.install_s.append(time.perf_counter() - t0)
+
+    eng._install = install
+
+
+def host_decodes(eng) -> int:
+    """Decode steps the host dispatched (each launches flash decode once
+    an attention block; a graph replay launches none from Python)."""
+    s = eng.decode_stats
+    return (s["dense"] - s["graph_replays"] + s["sparse_islands"]
+            + s["looped_islands"])
+
+
+def deploy_requests(cfg, n: int, seed: int, *, rid0: int = 0, paths=None,
+                    gap: float = 0.0, prompt_len: int = DEPLOY_PROMPT,
+                    max_new: int = DEPLOY_NEW) -> list:
+    """``n`` corpus prompts, ``gap`` seconds apart; ``paths`` pre-routes
+    them (else the engine's prompt-hash router does)."""
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
+                             seq_len=prompt_len, seed=0)
+    prompts = corpus.sample_documents(n, seed=seed)
+    return [Request(rid=rid0 + i, prompt=prompts[i], max_new=max_new,
+                    arrival=i * gap,
+                    path=None if paths is None else paths[i])
+            for i in range(n)]
+
+
+def run_to_end(eng, reqs) -> dict:
+    """Submit ``reqs`` at once and step ``eng`` until they finish ->
+    {rid: finished request} of ``reqs``."""
+    for r in reqs:
+        eng.submit(r)
+    out = {}
+    while not all(r.rid in out for r in reqs):
+        for f in eng.step():
+            out[f.rid] = f
+    return {r.rid: out[r.rid] for r in reqs}
+
+
+def tick_ms(records, tick: int) -> dict:
+    """The ``serve.tick`` spans before, at and after ``tick``, in ms."""
+    by = {r["args"]["tick"]: (r["t1"] - r["t0"]) / 1e6 for r in records
+          if r.get("name") == "serve.tick"}
+    return {"before": by.get(tick - 1), "during": by.get(tick),
+            "after": by.get(tick + 1)}
+
+
+def same_params(paths, ref) -> bool:
+    return all(torch.equal(a, b) for p, q in zip(paths, ref)
+               for a, b in zip(pytree.leaves(p), pytree.leaves(q)))
+
+
+def deploy_swaps(card: str, root: Path) -> dict:
+    """(a) dipaco-150m at full width (12 blocks, bf16, pallas), a 2x2
+    partition: the registry's v1 is the base; one outer phase of small
+    random deltas through ``ShardedOuterExecutors``, cut, canary-scored
+    and promoted by ``Publisher.publish_cycle`` as v2 while a request
+    is in flight on the engine (its dense tick captured at v1); the
+    drain swap: the four requests admitted after it equal a fresh eager
+    engine's on v2 and differ from v1's; a planted candidate of noise
+    rows is rejected and quarantined; a rollback to v1 as a live swap
+    flags the requests in flight, restores v1's weights bit for bit and
+    the v1 run's tokens; the one-shot engine follows one promote."""
+    cfg = get_config("dipaco-150m").replace(attn_impl="pallas",
+                                            dtype="bfloat16")
+    attn = cfg.num_layers
+    dcfg = DiPaCoConfig(levels=(2, 2))
+    PHASE9_DIR.mkdir(parents=True, exist_ok=True)
+    reg = DeploymentRegistry(cfg, dcfg, str(root / "deploy"),
+                             seed=DEPLOY_SEED, device=DEV9)
+    v1 = reg.register(note="base").version
+    reg.promote(v1)
+    db = ckpt_db.CheckpointDB(str(root / "db"))
+    store = ModuleStore(api.init_model(cfg, seed=DEPLOY_SEED, device=DEV9),
+                        param_axes(cfg), reg.partition)
+    execs = ShardedOuterExecutors(store, reg.partition, np.arange(4),
+                                  ckpt_db=db)
+    shadow = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
+                             seq_len=DEPLOY_SHADOW[1], seed=0) \
+        .sample_documents(DEPLOY_SHADOW[0], seed=5)
+    gate = TimedGate(cfg, shadow, ppl_ratio_tol=DEPLOY_PPL_TOL,
+                     min_agreement=0.0)
+    pub = Publisher(db, reg, gate=gate)
+    tel_path = PHASE9_DIR / "swaps.jsonl"
+    tel = Telemetry(tel_path, fresh=True, meta={"run": "phase9 swaps"})
+    opts = dict(cache_len=DEPLOY_CACHE, slots_per_path=DEPLOY_SLOTS,
+                route_fn=prefix_hash_router(4))
+    eng = ContinuousBatchingEngine(cfg, options=EngineOptions(
+        registry=reg, swap_policy="drain", telemetry=tel, **opts))
+    eng.warmup()
+    assert (eng._graph is not None) == (DEV9 == "cuda")
+    time_installs(eng)
+    reset_counts()
+    decoders = []            # (engine, host decodes before its runs)
+    decoders.append((eng, host_decodes(eng)))
+    out = {"card": card}
+    # the v1 run: 8 requests at once on the simulated clock
+    fins = eng.serve_trace(deploy_requests(cfg, 8, seed=11),
+                           tick_dt=CB_SIM_DT)
+    tok_v1 = {f.rid: f.tokens.tolist() for f in fins}
+    assert {f.version for f in fins} == {v1}
+    # A admitted on v1; then one outer phase lands and is published
+    a = deploy_requests(cfg, 1, seed=12, rid0=100, paths=[0])[0]
+    eng.submit(a)
+    eng.step()
+    assert a.rid in eng.in_flight
+    gen = torch.Generator(device=DEV9).manual_seed(DEPLOY_SEED)
+    like = store.assemble(0)
+    sync9()
+    t0 = time.perf_counter()
+    for w in range(4):
+        execs.accumulate(w, pytree.tree_map(
+            lambda x: DEPLOY_DELTA * torch.randn(
+                x.shape, generator=gen, device=DEV9), like), phase=0)
+    sync9()
+    out["outer_phase_s"] = time.perf_counter() - t0
+    del like
+    t0 = time.perf_counter()
+    cycle = pub.publish_cycle()
+    sync9()
+    out["publish_cycle_s"] = time.perf_counter() - t0
+    rep = cycle["report"]
+    out["canary"] = {"seconds": gate.seconds[-1], "ppl": [
+        rep.ppl_candidate, rep.ppl_serving], "agreement": rep.agreement}
+    assert cycle["promoted"] == 2 and rep.passed, cycle
+    v2 = 2
+    # the drain swap: B (one request an island) waits while A drains
+    b = deploy_requests(cfg, 4, seed=13, rid0=200, paths=[0, 1, 2, 3])
+    for r in b:
+        eng.submit(r)
+    fins_a, paused = [], 0
+    while not fins_a:
+        fins_a = eng.step()
+        if eng.in_flight:
+            assert not any(r.rid in eng.in_flight for r in b)
+            paused += 1
+    assert fins_a[0].version == v1 and eng.version == v1
+    replays0 = eng.decode_stats["graph_replays"]
+    fins_b = {}
+    while len(fins_b) < 4:
+        for f in eng.step():
+            fins_b[f.rid] = f
+    drain_tick = eng.last_swap_tick
+    assert eng.version == v2 and eng.swaps == 1
+    assert {f.version for f in fins_b.values()} == {v2}
+    if DEV9 == "cuda":
+        # B decoded through the captured tick, after the swap
+        assert eng.decode_stats["graph_replays"] > replays0, eng.decode_stats
+    fresh = ContinuousBatchingEngine(cfg, options=EngineOptions(
+        registry=reg, cuda_graph=False, **opts))
+    decoders.append((fresh, 0))
+    ref_b = run_to_end(fresh, deploy_requests(cfg, 4, seed=13, rid0=200,
+                                              paths=[0, 1, 2, 3]))
+    old = ContinuousBatchingEngine(cfg, reg.materialize(v1),
+                                   options=EngineOptions(cuda_graph=False,
+                                                         **opts))
+    decoders.append((old, 0))
+    old_b = run_to_end(old, deploy_requests(cfg, 4, seed=13, rid0=200,
+                                            paths=[0, 1, 2, 3]))
+    same = [fins_b[r].tokens.tolist() == ref_b[r].tokens.tolist()
+            for r in fins_b]
+    differ = sum(fins_b[r].tokens.tolist() != old_b[r].tokens.tolist()
+                 for r in fins_b)
+    out["drain"] = {"paused_ticks": paused, "equal_to_fresh_v2": sum(same),
+                    "differ_from_v1": differ}
+    assert all(same), "tokens after the drain swap differ from a fresh v2"
+    assert differ > 0, "v2 does not change the drain requests' tokens"
+    del fresh, old
+    # the planted candidate: noise rows for every module at phase 1
+    for (level, expert), ex in execs._all().items():
+        noise = pytree.tree_map(
+            lambda x: (DEPLOY_NOISE * torch.randn(
+                x.shape, generator=gen, device=DEV9)).to(x.dtype),
+            ex._params())
+        db.write({"params": noise}, path_id=-1, phase=1, step=2,
+                 kind="module", level=level, expert=expert,
+                 extra={"updates": 2})
+        del noise
+    bad = pub.publish_cycle()
+    rep = bad["report"]
+    out["planted"] = {"rejected": bad["rejected"], "reason": rep.reason,
+                      "ppl": [rep.ppl_candidate, rep.ppl_serving],
+                      "canary_s": gate.seconds[-1]}
+    assert bad["rejected"] == 3 and bad["promoted"] is None, bad
+    assert not rep.passed and reg.manifest(3).signature in pub._quarantined
+    assert reg.serving_version == v2
+    assert pub.publish_cycle()["promoted"] is None     # quarantined
+    pub.close()
+    # a rollback to v1, installed live: the requests in flight are
+    # re-prefilled on v1 and flagged
+    eng.swap_policy = "live"
+    c = deploy_requests(cfg, 8, seed=14, rid0=300)
+    for r in c:
+        eng.submit(r)
+    for _ in range(3):
+        eng.step()
+    inflight = set(eng.in_flight)
+    assert inflight
+    assert reg.rollback() == v1
+    fins_c = {}
+    while len(fins_c) < len(c):
+        for f in eng.step():
+            fins_c[f.rid] = f
+    live_tick = eng.last_swap_tick
+    assert eng.version == v1 and eng.swaps == 2
+    assert all(fins_c[r].swapped_midstream for r in inflight)
+    assert {f.version for f in fins_c.values()} == {v1}
+    assert same_params(eng.paths, reg.materialize(v1)), \
+        "paths after the rollback differ from v1's"
+    fins = eng.serve_trace(deploy_requests(cfg, 8, seed=11),
+                           tick_dt=CB_SIM_DT)
+    assert {f.rid: f.tokens.tolist() for f in fins} == tok_v1, \
+        "tokens after the rollback differ from the v1 run's"
+    out["live"] = {"in_flight": len(inflight),
+                   "flagged": sum(f.swapped_midstream
+                                  for f in fins_c.values())}
+    # the one-shot engine follows one promote
+    prompts = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
+                              seq_len=32, seed=0).sample_documents(4,
+                                                                   seed=17)
+    one = CheckedEngine(cfg, options=EngineOptions(registry=reg,
+                                                   cache_len=48))
+    one.finite = torch.ones((), dtype=torch.bool, device=DEV9)
+    one.decodes = one.feature_calls = 0
+    r1 = one.generate(prompts, max_new=8)
+    assert one.version == v1
+    reg.promote(v2)
+    r2 = one.generate(prompts, max_new=8)
+    assert one.version == v2
+    fresh_one = CheckedEngine(cfg, options=EngineOptions(registry=reg,
+                                                         cache_len=48))
+    fresh_one.finite = one.finite
+    fresh_one.decodes = fresh_one.feature_calls = 0
+    r2f = fresh_one.generate(prompts, max_new=8)
+    assert np.array_equal(r2.tokens, r2f.tokens)
+    assert bool(one.finite) and bool(fresh_one.finite)
+    out["oneshot"] = {"differ_from_v1": int((r1.tokens != r2.tokens).sum())}
+    launched = counts()
+    sync9()
+    decodes = (sum(host_decodes(e) - d0 for e, d0 in decoders)
+               + one.decodes + fresh_one.decodes)
+    if DEV9 == "cuda":
+        want = {"flash_attention": attn * gate.forwards,
+                "flash_decode": attn * decodes}
+        got = {k: launched[k] for k in want}
+        assert got == want and all(got.values()), (got, want)
+    out["launches"] = launched
+    out["install_s"] = eng.install_s
+    tel.close()
+    records = read_trace(tel_path)[0]
+    out["swap_spans_ms"] = [(r["t1"] - r["t0"]) / 1e6 for r in records
+                            if r.get("name") == "serve.swap"]
+    out["tick_ms"] = {"drain": tick_ms(records, drain_tick),
+                      "live": tick_ms(records, live_tick)}
+    if DEV9 == "cuda":
+        # the captured tick after the swaps: flash decode in its replays
+        out["graph"] = graph_tick_profile(eng, attn)
+    print(f"[deploy swaps] {out}", flush=True)
+    del eng, one, fresh_one, store, execs
+    return out
+
+
+def deploy_training(card: str, root: Path, cfg, ds, base) -> dict:
+    """(b) phase 8's cut (2 of 12 blocks): one barrier phase on one pool
+    thread, on its own thread, while the engine (its tick captured
+    before any thread starts) serves a stream of requests; the
+    publisher's background thread cuts the phase, scores it and promotes
+    it within one canary cycle, and the engine swaps to it."""
+    cfg, base = cut_depth(cfg, base, SVC_DEPTH)
+    dcfg = DiPaCoConfig(levels=(2, 2), inner_steps=TAU)
+    bar = make_trainer(cfg, dcfg, ds, backend="barrier",
+                       ckpt_root=str(root / "train"),
+                       **svc_kwargs(base, num_workers=1, device=DEV9))
+    reg = DeploymentRegistry(cfg, dcfg, str(root / "deploy_b"),
+                             base_params=base, device=DEV9)
+    shadow = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
+                             seq_len=DEPLOY_SHADOW[1], seed=0) \
+        .sample_documents(DEPLOY_SHADOW[0], seed=6)
+    gate = TimedGate(cfg, shadow, ppl_ratio_tol=DEPLOY_PPL_TOL,
+                     min_agreement=0.0)
+    tel_path = PHASE9_DIR / "training.jsonl"
+    tel = Telemetry(tel_path, fresh=True, meta={"run": "phase9 training"})
+    pub = Publisher(bar.db, reg, gate=gate, telemetry=tel)
+    eng = None
+    try:
+        v1 = pub.bootstrap().version
+        eng = ContinuousBatchingEngine(cfg, options=EngineOptions(
+            registry=reg, cache_len=DEPLOY_CACHE, slots_per_path=DEPLOY_SLOTS,
+            route_fn=prefix_hash_router(4), telemetry=tel))
+        eng.warmup()
+        time_installs(eng)
+        reset_counts()
+        d0 = host_decodes(eng)
+        pub.start(period=0.2)
+        result = {}
+
+        def train_one_phase():
+            try:
+                result["metrics"] = bar.run_phase()
+            except BaseException as e:   # re-raised on the main thread
+                result["error"] = e
+
+        trainer = threading.Thread(target=train_one_phase, name="trainer",
+                                   daemon=True)
+        served, rid = [], 0
+        t0 = time.perf_counter()
+        trainer.start()
+        deadline = t0 + 600.0
+        while eng.version == v1:
+            assert time.perf_counter() < deadline, "no swap within 600 s"
+            assert "error" not in result, result["error"]
+            if len(eng.in_flight) + eng.scheduler.pending < 4:
+                eng.submit(deploy_requests(cfg, 1, seed=1000 + rid,
+                                           rid0=rid, prompt_len=32,
+                                           max_new=8)[0])
+                rid += 1
+            served += eng.step(now=time.perf_counter() - t0)
+        swapped_s = time.perf_counter() - t0
+        trainer.join()
+        if "error" in result:
+            raise result["error"]
+        during = len(served)
+        served += list(run_to_end(eng, deploy_requests(
+            cfg, 4, seed=999, rid0=rid, prompt_len=32, max_new=8)).values())
+        sync9()
+        launched = counts()
+        m = result["metrics"]
+        v2 = eng.version
+        pub.close()
+        tel.close()
+        records = read_trace(tel_path)[0]
+        spans = {n: [r for r in records if r.get("name") == n]
+                 for n in ("deploy.cycle", "deploy.canary", "serve.swap")}
+        promoted = [r for r in records if r.get("name") == "deploy.promote"]
+        cycle = next(r for r in spans["deploy.cycle"]
+                     if r["args"].get("promoted") == v2)
+        swap = spans["serve.swap"][0]
+        out = {"card": card, "blocks": SVC_DEPTH,
+               "mean_loss": m.mean_loss, "outer_updates": m["outer_updates"],
+               "requests_served_while_training": during,
+               "seconds_to_swap": swapped_s,
+               "published": pub.published, "cycle_errors": pub.cycle_errors,
+               "canary_s": [(r["t1"] - r["t0"]) / 1e9
+                            for r in spans["deploy.canary"]],
+               "cycle_s": (cycle["t1"] - cycle["t0"]) / 1e9,
+               "promote_to_install_s": (swap["t1"] - promoted[0]["t"]) / 1e9,
+               "publish_to_servable_s": (swap["t1"] - cycle["t0"]) / 1e9,
+               "install_s": eng.install_s, "launches": launched,
+               "tick_ms": tick_ms(records, eng.last_swap_tick)}
+        print(f"[deploy training] {out}", flush=True)
+        assert np.isfinite(m.mean_loss) and pub.cycle_errors == 0
+        assert v2 == 2 and eng.swaps == 1 and pub.published == 1
+        assert {f.version for f in served[during:]} == {v2}
+        assert len(promoted) == 1 and len(spans["serve.swap"]) == 1
+        if DEV9 == "cuda":
+            check_launches(cfg, launched, ds.num_shards * TAU,
+                           "deploy training")
+            want = {"flash_attention": cfg.num_layers * gate.forwards,
+                    "flash_decode": cfg.num_layers * (host_decodes(eng)
+                                                      - d0)}
+            got = {k: launched[k] for k in want}
+            assert got == want and all(got.values()), (got, want)
+        return out
+    finally:
+        pub.close()
+        bar.shutdown()
+        del eng
+        free_memory()
+
+
+def deploy_fleet(card: str, root: Path) -> dict:
+    """(c) ``ServingFleet(size=2, backend="process")`` on (a)'s registry,
+    on the card: its members' tokens equal the in-process fleet's on the
+    same trace, and one promote (of the version served before) moves
+    both members."""
+    cfg = get_config("dipaco-150m").replace(attn_impl="pallas",
+                                            dtype="bfloat16")
+    reg = DeploymentRegistry(cfg, DiPaCoConfig(levels=(2, 2)),
+                             str(root / "deploy"), seed=DEPLOY_SEED,
+                             device=DEV9)
+    v = reg.serving_version
+    opts = EngineOptions(registry=reg, cache_len=FLEET_CACHE,
+                         slots_per_path=FLEET_SLOTS)
+
+    def trace():
+        return deploy_requests(cfg, 8, seed=21, gap=FLEET_GAP,
+                               prompt_len=32)
+
+    inproc = ServingFleet(cfg, size=FLEET_SIZE, options=opts,
+                          backend="inproc", warmup=True)
+    ref = {f.rid: f.tokens.tolist() for f in inproc.serve_trace(trace())}
+    del inproc
+    free_memory()
+    t0 = time.perf_counter()
+    fleet = ServingFleet(cfg, size=FLEET_SIZE, options=opts,
+                         backend="process", seed=DEPLOY_SEED, warmup=True)
+    with fleet:
+        out = {"card": card, "start_s": time.perf_counter() - t0}
+        fins = fleet.serve_trace(trace())
+        assert sorted(f.rid for f in fins) == sorted(ref)
+        same = sum(f.tokens.tolist() == ref[f.rid] for f in fins)
+        assert {f.version for f in fins} == {v}
+        t1 = time.perf_counter()
+        new = reg.promotion_history[-1]
+        reg.promote(new)
+        fleet.wait_version(new, timeout=120.0)
+        out["promote_to_all_members_s"] = time.perf_counter() - t1
+        after = fleet.serve_trace(deploy_requests(cfg, 4, seed=22,
+                                                  gap=0.05, prompt_len=32))
+        out.update(tokens_equal=same, requests=len(fins),
+                   versions=fleet.versions(),
+                   after_versions=sorted({f.version for f in after}),
+                   latency_ms=percentiles([f.latency * 1e3 for f in fins]),
+                   members=fleet.member_stats(), routed=fleet.stats)
+    out["exitcodes"] = [p.exitcode for p in fleet._procs]
+    print(f"[deploy fleet] {out}", flush=True)
+    assert same == len(fins), "process fleet tokens differ from inproc"
+    assert out["versions"] == [new] * FLEET_SIZE
+    assert out["after_versions"] == [new]
+    assert all(s["ticks"] > 0 for s in out["members"]), out["members"]
+    assert out["exitcodes"] == [0] * FLEET_SIZE
+    return out
+
+
+def deploy(card: str, cfg, ds, base, phase8_gb: float) -> dict:
+    """Phase 9: (a), (b) and (c) under one temporary directory, removed
+    at the end; fails above its byte budgets."""
+    root = Path(tempfile.mkdtemp(prefix="dipaco-phase9-"))
+    io0 = ckpt_db.io_stats()
+    t0 = time.perf_counter()
+    try:
+        out = {"swaps": deploy_swaps(card, root)}
+        free_memory()
+        out["training"] = deploy_training(card, root, cfg, ds, base)
+        out["fleet"] = deploy_fleet(card, root)
+        copies = sum(f.stat().st_size
+                     for d in ("deploy", "deploy_b")
+                     for f in (root / d / "modules").glob("*.npz"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_memory()
+    out["rows_gb"] = io_since(io0)["file_bytes"] / 1e9
+    out["registry_copies_gb"] = copies / 1e9
+    out["written_gb"] = out["rows_gb"] + out["registry_copies_gb"]
+    out["phase8_and_9_gb"] = phase8_gb + out["written_gb"]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[deploy] {out['written_gb']:.2f} GB written ({out['rows_gb']:.2f}"
+          f" of rows, {out['registry_copies_gb']:.2f} copied into the "
+          f"registries), phases 8 and 9 {out['phase8_and_9_gb']:.2f} GB, "
+          f"{out['seconds']:.1f} s", flush=True)
+    assert out["written_gb"] <= DEPLOY_BUDGET_GB, out["written_gb"]
+    assert out["phase8_and_9_gb"] <= DEPLOY_TOTAL_GB, out["phase8_and_9_gb"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2364,6 +2929,16 @@ def main() -> int:
                                        "spill")):
                 print(f"[ptxas {name}] {line.strip()}")
     tensor_core_sass()
+
+    if "--deploy" in sys.argv[1:]:
+        # phase 9 alone, on phase 4's data and weights (development)
+        cfg = get_config("dipaco-150m").replace(
+            attn_impl="pallas", dtype="bfloat16", route_prefix_len=32)
+        _, train_ds, train_base = train(cfg)
+        out = deploy(card, cfg, train_ds, train_base, 0.0)
+        print(card)
+        print(json.dumps(out))
+        return 0
 
     if "--service-probe" in sys.argv[1:]:
         cfg = get_config("dipaco-150m").replace(
@@ -2472,9 +3047,15 @@ def main() -> int:
     print(f"[phase] continuous: {phase_s['continuous']:.1f} s", flush=True)
     t0 = time.perf_counter()
     svc = service(cfg.replace(route_prefix_len=32), train_ds, train_base)
-    del train_base
     phase_s["service"] = time.perf_counter() - t0
     print(f"[phase] service: {phase_s['service']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    reset_counts()
+    dep = deploy(card, cfg.replace(route_prefix_len=32), train_ds, train_base,
+                 svc["file_gb"])
+    del train_base
+    phase_s["deploy"] = time.perf_counter() - t0
+    print(f"[phase] deploy: {phase_s['deploy']:.1f} s", flush=True)
     for k in kernels:
         if k["name"] in ("flash_attention_lse", "flash_attention_dkv",
                          "flash_attention_dq"):
@@ -2497,13 +3078,23 @@ def main() -> int:
         elif k["name"] == "ssd_scan":
             k["launches_continuous_mamba"] = cont["mamba"]["stacked"][
                 "launches"]["ssd_scan"]
+    for k in kernels:
+        if k["name"] in ("flash_attention", "flash_decode"):
+            k["launches_deploy"] = dep["swaps"]["launches"][k["name"]]
+            k["launches_deploy_training"] = dep["training"]["launches"][
+                k["name"]]
+        elif k["name"] in ("flash_attention_lse", "flash_attention_dkv",
+                           "flash_attention_dq"):
+            k["launches_deploy_training"] = dep["training"]["launches"][
+                k["name"]]
     print(f"[phase] seconds: {phase_s}")
 
     summary = {"kernels": kernels}
     print(json.dumps({"serve": runs, "prefill_decode_parity": parity,
                       "train": trained, "train_grad_parity": grads,
                       "families": families, "continuous": cont,
-                      "service": svc, "phase_seconds": phase_s}))
+                      "service": svc, "deploy": dep,
+                      "phase_seconds": phase_s}))
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

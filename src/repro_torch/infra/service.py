@@ -565,8 +565,13 @@ class TrainingService:
                     self.max_observed_lag = max(self.max_observed_lag,
                                                 t - mn)
                     todo.append((s, t))
+        # every snapshot row before the first task: a pool thread that
+        # picked up an earlier task could otherwise commit its rows
+        # between two snapshots, and the DB's row order would depend on
+        # thread timing (the run's own pump holds no lock)
         for s, t in todo:
             self._snapshot(s, t)
+        for s, t in todo:
             self.queue.put(Task("train", {
                 "shard_id": s, "tau": self._tau, "phase": t,
                 "start_step": t * self._tau}))

@@ -1,6 +1,7 @@
 from .cache import PrefixCache, SlotArena, SlotExhausted, StackedSlotArenas
 from .engine import (ContinuousBatchingEngine, EngineOptions,
                      FinishedRequest, GenerationResult, PathServingEngine)
+from .fleet import ServingFleet
 from .scheduler import (PRIO_HIGH, PRIO_PREEMPTIBLE, PRIO_STANDARD, Request,
                         RequestState, Scheduler, SchedulerStats,
                         poisson_trace, prefix_hash_router)
@@ -8,6 +9,6 @@ from .scheduler import (PRIO_HIGH, PRIO_PREEMPTIBLE, PRIO_STANDARD, Request,
 __all__ = ["ContinuousBatchingEngine", "EngineOptions", "FinishedRequest",
            "GenerationResult", "PRIO_HIGH", "PRIO_PREEMPTIBLE",
            "PRIO_STANDARD", "PathServingEngine", "PrefixCache", "Request",
-           "RequestState", "Scheduler", "SchedulerStats", "SlotArena",
-           "SlotExhausted", "StackedSlotArenas", "poisson_trace",
+           "RequestState", "Scheduler", "SchedulerStats", "ServingFleet",
+           "SlotArena", "SlotExhausted", "StackedSlotArenas", "poisson_trace",
            "prefix_hash_router"]

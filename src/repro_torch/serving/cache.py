@@ -14,9 +14,9 @@ and a prefill overwrites positions ``0..S-1`` of its row, so a freshly
 allocated slot can never attend a previous occupant's keys.
 
 :class:`PrefixCache` adds cross-request reuse on top of the arenas:
-prefill rows are remembered content-keyed by ``(path, prompt
-tokens)``.  It stores clones, because arena writes and decode happen in
-place.
+prefill rows are remembered content-keyed by ``(path, deployment
+version, prompt tokens)``.  It stores clones, because arena writes and
+decode happen in place.
 
 :class:`StackedSlotArenas` keeps the caches of P homogeneous islands in
 one tree whose leaves are ``(reps, P, S, ...)``: layer ``l``'s slice
@@ -121,7 +121,7 @@ class SlotArena:
 class PrefixCache:
     """Content-keyed cross-request reuse of prefill cache rows.
 
-    Entries map ``(path, tokens)`` to a single-slot cache tree
+    Entries map ``(path, version, tokens)`` to a single-slot cache tree
     (leaves ``(reps, 1, ...)``, one arena row) plus the next-token logits
     that forward produced.  ``lookup`` returns the longest usable entry:
     the exact prompt when present, else the longest *strict* prefix (the
@@ -129,9 +129,9 @@ class PrefixCache:
     steps).  ``put`` stores clones: the arenas and the replay write their
     rows in place, and must never write into an entry.
 
-    LRU-bounded by entry count.  The reference also keys entries by the
-    registry's deployment version; that comes with the registry (ROADMAP
-    queue 1, item 3).
+    LRU-bounded by entry count; versioned keys plus an explicit
+    :meth:`invalidate` on hot swap keep a superseded deployment's rows
+    from ever being served (and from pinning their memory).
     """
 
     def __init__(self, max_entries: int):
@@ -147,15 +147,16 @@ class PrefixCache:
     def __len__(self) -> int:
         return len(self._entries)
 
-    def put(self, path: int, tokens, row_cache, logits) -> None:
-        key = (int(path), tuple(int(t) for t in tokens))
+    def put(self, path: int, version: int, tokens, row_cache,
+            logits) -> None:
+        key = (int(path), int(version), tuple(int(t) for t in tokens))
         self._entries.pop(key, None)
         self._entries[key] = (tree_map(torch.clone, row_cache),
                               torch.as_tensor(logits).clone())
         while len(self._entries) > self.max_entries:
             self._entries.popitem(last=False)
 
-    def lookup(self, path: int,
+    def lookup(self, path: int, version: int,
                tokens) -> Optional[Tuple[int, object, torch.Tensor]]:
         """Longest usable entry for ``tokens``: ``(n_cached, row_cache,
         logits)`` with ``n_cached == len(tokens)`` for an exact hit, a
@@ -163,7 +164,7 @@ class PrefixCache:
         is the stored one: copy it before writing into it."""
         toks = tuple(int(t) for t in tokens)
         for n in range(len(toks), 0, -1):
-            key = (int(path), toks[:n])
+            key = (int(path), int(version), toks[:n])
             hit = self._entries.get(key)
             if hit is None:
                 continue
@@ -175,6 +176,11 @@ class PrefixCache:
             return n, hit[0], hit[1]
         self.misses += 1
         return None
+
+    def invalidate(self) -> None:
+        """Drop every entry (hot swap: a new version's keys never match
+        old entries, but keeping them would pin superseded rows)."""
+        self._entries.clear()
 
 
 class StackedSlotArenas:

@@ -18,8 +18,26 @@ and feature machinery:
 Under ``cfg.attn_impl == "pallas"`` the routing features go through the
 flash-attention kernel and every decode step through flash-decode.
 
-The deployment registry (``registry=``, hot swaps and their
-``swap_policy``) is not ported yet (ROADMAP queue 1, item 3).
+Both engines optionally serve from a deployment registry
+(``repro_torch.deploy``): instead of a fixed ``path_params_list`` they
+take a ``registry`` handle and hot-swap the whole path set *between
+decode ticks* whenever the registry's tagged serving version moves
+(promote or rollback).  Shapes and dtypes are unchanged by a swap, so
+the continuous engine copies the new weights into its stacked weights in
+place: the tensors that a captured CUDA-graph tick reads keep their
+addresses, and the next replay serves the new version.  The per-request
+policy is chosen at construction:
+
+* ``swap_policy="drain"`` — in-flight requests finish on the version
+  they were admitted under: admissions pause (scheduler backpressure)
+  until the arenas drain, then the new version installs.  Requests
+  admitted after the swap are token-identical to a freshly constructed
+  engine on the new parameters.
+* ``swap_policy="live"`` — the new version installs immediately and
+  every in-flight request is migrated onto it mid-stream by
+  re-prefilling its running text into its slot (the §2.4.3 migration
+  primitive, minus the island move).  Token divergence is accepted and
+  the affected requests are flagged ``swapped_midstream``.
 """
 from __future__ import annotations
 
@@ -75,8 +93,10 @@ class EngineOptions:
 
     The continuous-batching-only fields (``slots_per_path`` onward) are
     accepted and ignored by the one-shot engine, so one options object
-    can configure either engine.  ``swap_policy`` is validated and
-    otherwise unused until the registry is ported.
+    can configure either engine.  ``registry`` (a
+    ``repro_torch.deploy.DeploymentRegistry``) replaces the engine's
+    ``path_params_list``; ``swap_policy`` says how the continuous engine
+    installs a new serving version.
     """
 
     router: Any = None
@@ -107,10 +127,6 @@ class EngineOptions:
         if self.router is not None and self.route_fn is not None:
             raise ValueError("pass either router (feature-based) or "
                              "route_fn (prompt -> path id), not both")
-        if self.registry is not None:
-            raise NotImplementedError(
-                "registry= is not ported to repro_torch yet (ROADMAP "
-                "queue 1, item 3: checkpoint and deploy planes)")
         if self.swap_policy not in ("drain", "live"):
             raise ValueError(f"swap_policy must be 'drain' or 'live', "
                              f"got {self.swap_policy!r}")
@@ -152,6 +168,8 @@ class FinishedRequest:
     admitted_at: float
     finished_at: float
     first_token_at: float = 0.0
+    version: int = -1           # registry version the request finished on
+    swapped_midstream: bool = False   # a live hot-swap hit this request
     priority: int = 1
     preemptions: int = 0        # times a high-priority admit evicted it
 
@@ -183,16 +201,25 @@ def _greedy(logits: torch.Tensor) -> List[int]:
 
 
 class _EngineBase:
-    """Shared routing / feature plumbing."""
+    """Shared routing / feature / registry plumbing."""
 
     def __init__(self, cfg: ModelConfig, path_params_list=None, *,
                  options: Optional[EngineOptions] = None):
         opts = options if options is not None else EngineOptions()
-        if not path_params_list:
-            raise ValueError("path_params_list is required (the registry "
-                             "handle is not ported yet)")
+        if opts.registry is not None:
+            if path_params_list is not None:
+                raise ValueError(
+                    "pass either path_params_list or registry, not both")
+            self._version, path_params_list = opts.registry.serving()
+        elif not path_params_list:
+            raise ValueError("either path_params_list or a registry "
+                             "handle is required")
+        else:
+            self._version = -1
         self.cfg = cfg
         self.options = opts
+        self.registry = opts.registry
+        self.swap_policy = opts.swap_policy
         self.tel = as_telemetry(opts.telemetry)
         self.paths = list(path_params_list)
         self.device = params_device(self.paths[0])
@@ -200,14 +227,18 @@ class _EngineBase:
         self.route_fn = opts.route_fn
         self.feat_params = opts.feat_params
         self.cache_len = opts.cache_len
+        # routing features come from ``feat_params``, else the first
+        # path as constructed (the base LM): pinned, so that a hot swap
+        # leaves routing as it was (the router is versioned with the
+        # deployment, not with every weight swap)
+        self._feat_src = (opts.feat_params if opts.feat_params is not None
+                          else self.paths[0] if opts.router is not None
+                          else None)
 
     @torch.inference_mode()
     def _feats(self, tokens) -> torch.Tensor:
-        """Routing features from ``feat_params``, else the first path (the
-        base LM)."""
-        src = self.feat_params if self.feat_params is not None \
-            else self.paths[0]
-        h, _ = apply_lm(src, self.cfg, self._tokens(tokens),
+        """Routing features of ``tokens`` (mean final hidden state)."""
+        h, _ = apply_lm(self._feat_src, self.cfg, self._tokens(tokens),
                         return_hidden=True)
         return h.float().mean(dim=1)
 
@@ -223,9 +254,29 @@ class _EngineBase:
     def _tokens(self, a) -> torch.Tensor:
         return torch.tensor(np.asarray(a, np.int32), device=self.device)
 
+    @property
+    def version(self) -> int:
+        """Registry version currently installed (-1: no registry)."""
+        return self._version
+
 
 class PathServingEngine(_EngineBase):
     """One-shot batch engine: synchronous generate per batch."""
+
+    def poll_registry(self) -> bool:
+        """Install the registry's serving version if it moved.  Called
+        between ``generate`` batches — drain semantics, since the
+        one-shot engine holds no in-flight state across calls."""
+        if self.registry is None:
+            return False
+        if self.registry.serving_version == self._version:
+            return False
+        t0 = time.monotonic_ns()
+        self._version, paths = self.registry.serving()
+        self.paths = list(paths)
+        self.tel.complete_span("serve.swap", t0, policy="drain",
+                               version=self._version)
+        return True
 
     def _decode(self, params, tok, cache, idx):
         logits, cache = api.serve_step(params, self.cfg, {"tokens": tok},
@@ -248,6 +299,7 @@ class PathServingEngine(_EngineBase):
         """Greedy generation.  With ``reroute_every`` a whole co-routed
         group follows the first request's re-route vote, as in the
         reference."""
+        self.poll_registry()
         prompts = np.asarray(prompts)
         b, s0 = prompts.shape
         assign = self.route(prompts)
@@ -329,6 +381,10 @@ class ContinuousBatchingEngine(_EngineBase):
     or replayed), ``graph_replays`` among them, ``sparse_islands`` (one
     per island of a sparse tick) and ``looped_islands`` (stacked=False),
     and ``feature_calls`` (routing and re-route features).
+
+    With a registry every tick first polls its serving version
+    (``_poll_swap``); ``swaps`` counts the installs and
+    ``last_swap_tick`` is the tick of the last one.
     """
 
     def __init__(self, cfg: ModelConfig, path_params_list=None, *,
@@ -338,6 +394,11 @@ class ContinuousBatchingEngine(_EngineBase):
         cache_len = self.cache_len
         slots_per_path = opts.slots_per_path
         self.reroute_every = opts.reroute_every
+        self.swaps = 0
+        self.last_swap_tick = -1
+        # monotonic start of a pending drain-policy swap window (the
+        # serve.swap span runs from the first drain tick to the install)
+        self._swap_wait_ns = None
         num_paths = len(self.paths)
         homog = _paths_homogeneous(self.paths)
         self.stacked = homog if opts.stacked is None else opts.stacked
@@ -485,6 +546,73 @@ class ContinuousBatchingEngine(_EngineBase):
             ids = self._dense_body(inp)
         self._graph = _TickGraph(graph, inp, ids)
 
+    # -- hot swap (deployment registry) --------------------------------
+    @torch.no_grad()
+    def _install(self, version: int, paths) -> None:
+        """Swap the serving weights between ticks.  Stacked islands copy
+        each new path's leaves into the stacked weights in place (never a
+        rebind: a captured tick reads those tensors, and a rebind would
+        leave its replays serving the old version); ``self.paths`` are
+        views into the stack, so they follow."""
+        if self.stacked:
+            for p, new in enumerate(paths):
+                tree_map(lambda dst, src: dst.copy_(src),
+                         path_view(self._stacked_params, p), new)
+        else:
+            self.paths = list(paths)
+        self._version = version
+        self.swaps += 1
+        self.last_swap_tick = self.ticks
+        if self.prefix_cache is not None:
+            self.prefix_cache.invalidate()
+
+    def _poll_swap(self) -> bool:
+        """Install a new serving version if the registry moved; returns
+        True while a drain-policy swap is pending (admissions pause)."""
+        if self.registry is None:
+            return False
+        if self.registry.serving_version == self._version:
+            return False
+        version, paths = self.registry.serving()
+        if version == self._version:
+            return False
+        if self.swap_policy == "live":
+            t0 = time.monotonic_ns()
+            self._install(version, paths)
+            self._reprefill_inflight()
+            self.tel.complete_span("serve.swap", t0, policy="live",
+                                   version=version, tick=self.ticks)
+            return False
+        if self.in_flight:
+            # drain: in-flight requests finish on their admitted
+            # version; new admissions wait (scheduler backpressure)
+            if self._swap_wait_ns is None:
+                self._swap_wait_ns = time.monotonic_ns()
+            return True
+        t0 = self._swap_wait_ns or time.monotonic_ns()
+        self._swap_wait_ns = None
+        self._install(version, paths)
+        self.tel.complete_span("serve.swap", t0, policy="drain",
+                               version=version, tick=self.ticks)
+        return False
+
+    def _reprefill_inflight(self) -> None:
+        """Live-swap migration: rebuild every in-flight request's cache
+        row on the just-installed version by re-prefilling its running
+        text into its own slot (in place in the stacked arena; the tick
+        that follows leaves the row alone, as it does every row
+        prefilled this tick).  The continuation diverges from both the
+        old-version stream and a fresh new-version generation —
+        accepted, and the request is flagged."""
+        for st in self.in_flight.values():
+            logits, cache = self._prefill_running(st.path, st.tokens)
+            self.arenas[st.path].write_slots(cache, [st.slot],
+                                             [len(st.tokens)])
+            st.next_token = _greedy(logits)
+            st.prefilled_this_tick = True
+            st.swapped_midstream = True
+            st.version = self._version
+
     def device_state(self):
         """Device buffers the next tick reads (to synchronize on before
         reading a clock)."""
@@ -575,13 +703,19 @@ class ContinuousBatchingEngine(_EngineBase):
                                "graph: call warmup() first to capture it")
         self.ticks += 1
         with self.tel.span("serve.tick", tick=self.ticks) as sp:
+            draining = self._poll_swap()
             self.scheduler.route_arrivals(self._route_prompt)
-            if self.preemption:
-                self._preempt_tick()
-            admissions = self.scheduler.admissions(
-                {p: a.num_free for p, a in enumerate(self.arenas)})
-            for p, reqs in admissions.items():
-                self._admit(p, reqs, now)
+            if not draining:
+                if self.preemption:
+                    self._preempt_tick()
+                admissions = self.scheduler.admissions(
+                    {p: a.num_free for p, a in enumerate(self.arenas)})
+                for p, reqs in admissions.items():
+                    self._admit(p, reqs, now)
+            elif self.scheduler.pending:
+                # the drain pause is backpressure too: every queued
+                # request waits on the swap, not on slots
+                self.scheduler.drain_backpressure()
             self._decode_tick()
             fins = self._emit_tick(now)
             sp.set(in_flight=len(self.in_flight), finished=len(fins))
@@ -634,7 +768,7 @@ class ContinuousBatchingEngine(_EngineBase):
     def _prefix_admit(self, path: int, r: Request, arena,
                       now: float) -> bool:
         """Admit ``r`` from the cross-request prefix cache when (a prefix
-        of) its prompt is cached.
+        of) its prompt is cached under the current version.
 
         Exact hits write the stored row and take the stored logits;
         prefix hits replay only the uncached tail through single-row
@@ -643,7 +777,7 @@ class ContinuousBatchingEngine(_EngineBase):
         """
         if self.prefix_cache is None:
             return False
-        hit = self.prefix_cache.lookup(path, r.prompt)
+        hit = self.prefix_cache.lookup(path, self._version, r.prompt)
         if hit is None:
             return False
         n, row, logits = hit
@@ -654,13 +788,13 @@ class ContinuousBatchingEngine(_EngineBase):
             for t in range(n, s0):
                 logits = self._extend(self.paths[path], int(r.prompt[t]),
                                       row, t)
-            self.prefix_cache.put(path, r.prompt, row, logits)
+            self.prefix_cache.put(path, self._version, r.prompt, row, logits)
         slot = arena.alloc()
         arena.write_slots(row, [slot], [s0])
         self.in_flight[r.rid] = _Running(
             req=r, path=path, slot=slot, tokens=list(map(int, r.prompt)),
             next_token=_greedy(logits), prefilled_this_tick=True,
-            admitted_at=now)
+            admitted_at=now, version=self._version)
         return True
 
     def _admit(self, path: int, reqs: List[Request], now: float) -> None:
@@ -706,9 +840,10 @@ class ContinuousBatchingEngine(_EngineBase):
                     req=r, path=path, slot=slot,
                     tokens=list(map(int, r.prompt)),
                     next_token=_greedy(logits[0]), prefilled_this_tick=True,
-                    admitted_at=now)
+                    admitted_at=now, version=self._version)
                 if self.prefix_cache is not None:
-                    self.prefix_cache.put(path, r.prompt, cache, logits[0])
+                    self.prefix_cache.put(path, self._version, r.prompt,
+                                          cache, logits[0])
             return
         groups: Dict[int, List[Request]] = {}
         for r in reqs:
@@ -729,10 +864,11 @@ class ContinuousBatchingEngine(_EngineBase):
                 self.in_flight[r.rid] = _Running(
                     req=r, path=path, slot=slots[i],
                     tokens=list(map(int, r.prompt)), next_token=ids[i],
-                    prefilled_this_tick=True, admitted_at=now)
+                    prefilled_this_tick=True, admitted_at=now,
+                    version=self._version)
                 if self.prefix_cache is not None:
                     self.prefix_cache.put(
-                        path, r.prompt,
+                        path, self._version, r.prompt,
                         tree_map(lambda x, i=i: x[:, i:i + 1], cache),
                         logits[i])
 
@@ -811,6 +947,8 @@ class ContinuousBatchingEngine(_EngineBase):
                     path=st.path, switches=st.switches,
                     arrival=st.req.arrival, admitted_at=st.admitted_at,
                     finished_at=now, first_token_at=st.first_token_at,
+                    version=st.version,
+                    swapped_midstream=st.swapped_midstream,
                     priority=st.req.priority,
                     preemptions=st.preemptions)
                 done.append(fin)

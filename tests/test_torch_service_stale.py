@@ -13,8 +13,18 @@ before the other shards' phase-t deltas land, so its phase-(t + 1)
 delta is taken against an older snapshot and applied on top of the
 newer modules; both packages do so (the first snapshots below).  Every
 service gets a 60 s phase timeout and is shut down in a
-``finally``."""
+``finally``.
+
+The row order is compared, so neither service may let the pool thread
+commit a phase between the snapshot rows that one ``run`` writes as it
+starts (its pump takes every shard's snapshot and enqueues its task on
+the caller's thread, holding no lock).  The port takes every snapshot
+before it enqueues the first task.  The JAX service enqueues each task
+just after its snapshot, so under load its pool thread could commit
+shard 0's phase before shard 3's snapshot was written;
+``_pump_before_commits`` holds its commit lock through that pump."""
 import tempfile
+import threading
 
 import jax
 import numpy as np
@@ -52,6 +62,21 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _pump_before_commits(svc):
+    """Hold ``svc``'s commit lock while the test's thread pumps, so that
+    the pool thread commits nothing between the pump's snapshot rows.
+    The pool thread pumps under that lock already."""
+    pump, caller = svc._pump, threading.get_ident()
+
+    def pump_locked():
+        if threading.get_ident() != caller:
+            return pump()
+        with svc._commit_lock:
+            return pump()
+
+    svc._pump = pump_locked
+
+
 def _row_order(db):
     return [(r.kind, r.path_id, r.phase, r.level, r.expert, r.fragment)
             for r in db.rows()]
@@ -79,6 +104,7 @@ def test_stale_service_three_phases_matches_reference(tiny_cfg, tiny_base,
                           jsharder.shard_documents(docs, doms % 4, 4),
                           ckpt_root=r2, key=jax.random.PRNGKey(0),
                           base_params=base, **SCHEDULE)
+            _pump_before_commits(js)
             # as chip_smoke.py runs it: two phases, a sync point, one more
             for n in (PHASES - 1, 1):
                 a, b = ts.run(n), js.run(n)

@@ -116,15 +116,17 @@ def test_route_fn_and_unrouted_match():
 
 
 def test_engine_options_not_ported_parts_raise(tmp_path):
-    """``registry=`` still raises (the deploy plane is not ported);
-    ``telemetry=`` now records the continuous engine's ticks."""
+    """``registry=`` is taken now (the deploy plane is ported), but not
+    beside a path list; ``telemetry=`` records the continuous engine's
+    ticks."""
     from repro_torch.obs import Telemetry, read_trace
     from repro_torch.serving import ContinuousBatchingEngine, Request
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TOptions(registry=object())
     with pytest.raises(ValueError, match="not both"):
         TOptions(router=object(), route_fn=lambda p: 0)
     _, tcfg, _, tpaths = _setup()
+    with pytest.raises(ValueError, match="not both"):
+        ContinuousBatchingEngine(tcfg, tpaths,
+                                 options=TOptions(registry=object()))
     tel = Telemetry(tmp_path / "serve.jsonl", fresh=True)
     eng = ContinuousBatchingEngine(tcfg, tpaths, options=TOptions(
         cache_len=16, slots_per_path=1, telemetry=tel))
