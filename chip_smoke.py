@@ -145,6 +145,30 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    written and the phase's seconds; fails above 8 GB written, or above
    44 GB with phase 8's rows.
 
+10. The ``"mesh"`` backend (``make_trainer(backend="mesh")``,
+   ``repro_torch.launch.{mesh,steps,train}``) on phase 4's
+   ``dipaco-150m`` shards and base weights at full width (bf16,
+   ``attn_impl="pallas"``): a 2x2 DiPaCo, 4 workers of batch 8, tau 4,
+   K = 2 fragments, the int8 wire.  (a) A world of one NCCL rank, all 12
+   blocks, 2 phases: the worker params, the f32 global copies, the AdamW
+   moments, the fragment states and the residuals must equal the
+   single-process oracle's (``core.diloco.segmented_streaming_phase``
+   driven by the same segment function from the same weights) bit for
+   bit; each phase's mean loss finite and falling; the LSE forward,
+   dK/dV and dQ launched as the blocks, workers and steps need (remat's
+   recompute included).  Prints the phase seconds, peak memory,
+   ``comm_stats``, the int8 wire against fp32 and the bytes gathered, and
+   from a profiled third phase the gathers' device time and how much of
+   it overlapped the compute stream.  (b) Two spawned gloo ranks sharing
+   the card (NCCL refuses two ranks on one device), 2 workers each, with
+   a process-group timeout and a join deadline: every path's parameters,
+   the losses and the comm accounting after 2 phases equal (a)'s bit for
+   bit.  (c) Kill and resume at phase 8's cut (2 of 12 blocks): 1 phase
+   with its phase-state file, the trainer dropped, ``resume``, 1 more
+   phase, against 2 uninterrupted phases bit for bit; the files (about
+   4.3 GB each) go to ``/dev/shm``, not the disk, fail above 10 GB, and
+   are removed.
+
 ``python3 chip_smoke.py --service-probe`` runs phase 4's pipeline and a
 probe of the stale service's loss (the vector trainer and the service
 on one thread at lag 0, at lag 1 and at lag 1 without outer momentum,
@@ -154,7 +178,8 @@ phase 8, then phase 8's barrier and planted faults at 12 blocks.  At
 12 blocks a service run writes up to about 40 GB of rows under
 ``TMPDIR``: give it a ``TMPDIR`` in memory (``/dev/shm``) that holds
 them.  ``python3 chip_smoke.py --deploy`` runs phase 4's pipeline and
-then phase 9 alone.
+then phase 9 alone, ``python3 chip_smoke.py --mesh`` phase 4's pipeline
+and then phase 10 alone.
 
 It prints one ``{"kernels": [...]}`` line before the card's line, with
 the backward kernels' rows too, and the last line is ``{"ok": true,
@@ -164,11 +189,15 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
+import datetime
 import gc
 import json
+import multiprocessing as mp
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -178,6 +207,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -185,6 +215,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import make_trainer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import pytree  # noqa: E402
+from repro_torch.core.diloco import (fragment_state_init,  # noqa: E402
+                                     segmented_streaming_phase)
+from repro_torch.core.fragments import FragmentSpec, segment_bounds  # noqa: E402
 from repro_torch.core.module_store import ModuleStore  # noqa: E402
 from repro_torch.core.routing import (DiscriminativeRouter,  # noqa: E402
                                       KMeansRouter, evaluate_rerouted,
@@ -200,12 +233,15 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
     attention_delta, flash_attention_dkv, flash_attention_dq,
     flash_attention_lse)
-from repro_torch.core.dipaco import diloco_config, flat_moe_config  # noqa: E402
+from repro_torch.core.dipaco import (diloco_config,  # noqa: E402
+                                     flat_moe_config, stack_tree)
+from repro_torch.data.loader import phase_batches  # noqa: E402
 from repro_torch.kernels.moe_gmm import (expert_gemm, expert_gemm_dw,  # noqa: E402
                                          expert_gemm_dx)
 from repro_torch.kernels.router_assign import router_assign  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
-from repro_torch.launch.steps import value_and_grad  # noqa: E402
+from repro_torch.launch.steps import (make_segment_scan_fn,  # noqa: E402
+                                      value_and_grad)
 from repro_torch.models import api, moe_layer  # noqa: E402
 from repro_torch.models.config import DiPaCoConfig  # noqa: E402
 from repro_torch.models.params import (LAYERS, param_axes,  # noqa: E402
@@ -2906,6 +2942,376 @@ def deploy(card: str, cfg, ds, base, phase8_gb: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the "mesh" backend on torch.distributed
+# ---------------------------------------------------------------------------
+# phase 4's dipaco-150m (bf16, pallas, remat), its shards and its base
+# weights at full width: a 2x2 DiPaCo, 4 workers of batch 8, tau 4, K = 2
+# fragments, the int8 wire.  (a) a world of one NCCL rank, all 12 blocks,
+# 2 phases, against the single-process oracle bit for bit; (b) two gloo
+# ranks sharing the card (NCCL refuses two ranks on one device), each
+# with 2 of the 4 workers, against (a) bit for bit; (c) kill and resume at
+# phase 8's cut, the phase-state files in /dev/shm (memory, not the
+# machine's disk, whose 45 GiB of writes phases 8 and 9 nearly use up)
+MESH_FRAGMENTS, MESH_COMM, MESH_PHASES, MESH_RANKS = 2, "int8", 2, 2
+# (b)'s process-group timeout and join deadline: a hung collective fails
+MESH_TIMEOUT_S = 600
+MESH_SHM = Path("/dev/shm")
+# (c) writes two state files of about 4.3 GB at 2 blocks
+MESH_STATE_CAP_GB = 10.0
+
+
+def device_sync(dev: str) -> None:
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_kwargs(base, dev: str) -> dict:
+    return dict(base_params=base, batch_size=TRAIN_BATCH, peak_lr=2e-3,
+                warmup=TAU, total_steps=MESH_PHASES * TAU, device=dev)
+
+
+def mesh_dcfg() -> DiPaCoConfig:
+    return DiPaCoConfig(levels=(2, 2), inner_steps=TAU,
+                        outer_fragments=MESH_FRAGMENTS, comm_dtype=MESH_COMM)
+
+
+def mesh_state(tr) -> dict:
+    """The trees the oracle also holds, as leaf lists in the fragment
+    spec's order (fragment states and residuals by leaf index)."""
+    return {"worker": pytree.leaves(tr.worker_params),
+            "global": pytree.leaves(tr.global_params),
+            "opt": pytree.leaves({"m": tr.opt_state["m"],
+                                  "v": tr.opt_state["v"]}),
+            "frag_states": [s[i] for s in tr.frag_states for i in sorted(s)],
+            "residuals": [tr.residuals[i] for i in sorted(tr.residuals)]}
+
+
+def mesh_oracle(tr, cfg, ds, base, dev: str) -> dict:
+    """``core.diloco.segmented_streaming_phase`` for MESH_PHASES phases
+    from ``base``, driven by the same segment function (``launch.steps.
+    make_segment_scan_fn``) on the same batches and rates, in one
+    process: the mixing matrices and the schedule are ``tr``'s inputs."""
+    W = ds.num_shards
+    worker = stack_tree(base, W)
+    glob = stack_tree(pytree.tree_map(lambda x: x.float(), base), W)
+    opt = stack_tree(adamw_init(base), W)
+    spec = FragmentSpec(glob, MESH_FRAGMENTS)
+    states, resid = fragment_state_init(glob, spec), {}
+    seg_fn = make_segment_scan_fn(cfg)
+    bounds = segment_bounds(TAU, MESH_FRAGMENTS)
+    d = tr.dcfg
+    for ph in range(MESH_PHASES):
+        batches = torch.as_tensor(np.stack(
+            [phase_batches(ds.shards[i], TRAIN_BATCH, TAU, i, ph)
+             for i in range(W)], axis=1), device=dev)
+        lrs = torch.stack([tr.lr(ph * TAU + t) for t in range(TAU)]).to(dev)
+        box = [opt]
+
+        def inner_seg(s, wp):
+            wp, box[0], _ = seg_fn(wp, box[0],
+                                   batches[bounds[s]:bounds[s + 1]],
+                                   lrs[bounds[s]:bounds[s + 1]])
+            return wp
+
+        worker, glob, states, resid = segmented_streaming_phase(
+            inner_seg, worker, glob, states, resid, tr.axes, tr.mix_layers,
+            tr.mix_shared, spec, comm_dtype=MESH_COMM, lr=d.outer_lr,
+            momentum=d.outer_momentum, nesterov=d.outer_nesterov)
+        opt = box[0]
+    return {"worker": pytree.leaves(worker), "global": pytree.leaves(glob),
+            "opt": pytree.leaves({"m": opt["m"], "v": opt["v"]}),
+            "frag_states": [s[i] for s in states for i in sorted(s)],
+            "residuals": [resid[i] for i in sorted(resid)]}
+
+
+def mesh_differences(mine: dict, want: dict) -> dict:
+    """Leaves that are not equal bit for bit, by tree: (leaf, max |a-b|,
+    elements that differ)."""
+    out = {}
+    for k in want:
+        assert len(mine[k]) == len(want[k]), (k, len(mine[k]), len(want[k]))
+        bad = [(i, float((a.float() - b.float()).abs().max()),
+                int((a != b).sum()))
+               for i, (a, b) in enumerate(zip(mine[k], want[k]))
+               if not torch.equal(a, b)]
+        if bad:
+            out[k] = bad
+    return out
+
+
+def gather_overlap(prof) -> dict:
+    """From a profiled phase: the device time of work on the streams other
+    than the compute stream (the gathers of a world of one NCCL rank:
+    copies on NCCL's own stream), and how much of it ran while the
+    compute stream was busy.  The ``nccl:`` spans, which annotate each
+    collective around that work, are counted apart."""
+    ev, spans = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        row = (e.device_resource_id(), e.start_ns(), e.end_ns(), e.name())
+        (spans if e.name().startswith("nccl:") else ev).append(row)
+    per_stream: dict = {}
+    for sid, a, b, _ in ev:
+        per_stream[sid] = per_stream.get(sid, 0) + (b - a)
+    compute = max(per_stream, key=per_stream.get)
+    busy = sorted((a, b) for sid, a, b, _ in ev if sid == compute)
+    merged: list = []
+    for a, b in busy:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    starts = [m[0] for m in merged]
+    other = [(a, b, n) for sid, a, b, n in ev if sid != compute]
+    over = 0
+    for a, b, _ in other:
+        j = max(bisect.bisect_right(starts, a) - 1, 0)
+        while j < len(merged) and merged[j][0] < b:
+            over += max(0, min(b, merged[j][1]) - max(a, merged[j][0]))
+            j += 1
+    names: dict = {}
+    for _, _, n in other:
+        names[n[:60]] = names.get(n[:60], 0) + 1
+    gather_ns = sum(b - a for a, b, _ in other)
+    return {"gather_ms": gather_ns / 1e6, "overlap_ms": over / 1e6,
+            "overlapping": over > 0, "events": len(other),
+            "names": names, "compute_stream_busy_ms":
+            sum(b - a for a, b in merged) / 1e6,
+            "collectives": len(spans),
+            "collective_span_ms": sum(b - a for _, a, b, _ in spans) / 1e6}
+
+
+def mesh_one(card: str, cfg, ds, base, dev: str) -> dict:
+    """(a) ``make_trainer(backend="mesh")`` in a world of one rank (NCCL
+    on the card): 2 phases against the oracle bit for bit, the training
+    kernels' launches, then a profiled third phase for the gathers'
+    overlap."""
+    free_memory()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tr = make_trainer(cfg, mesh_dcfg(), ds, backend="mesh",
+                      **mesh_kwargs(base, dev))
+    W = tr.num_workers
+    assert tr.mesh.world == 1, tr.mesh
+    assert tr.mesh.backend == ("nccl" if dev == "cuda" else "gloo"), tr.mesh
+    phases, seconds = [], []
+    for _ in range(MESH_PHASES):
+        device_sync(dev)
+        t0 = time.perf_counter()
+        m = tr.run_phase()
+        device_sync(dev)
+        seconds.append(time.perf_counter() - t0)
+        phases.append({"mean_loss": m.mean_loss, "final_loss": m.final_loss,
+                       "per_path_loss": m.per_path_loss.tolist()})
+    launched = counts()
+    steps = W * TAU * MESH_PHASES
+    out = {"card": card, "blocks": cfg.num_layers, "workers": W,
+           "phases": phases, "phase_s": seconds,
+           "step_s_share": [x / (W * TAU) for x in seconds],
+           "launches": launched, "comm_stats": dict(tr.comm_stats)}
+    if dev == "cuda":
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the wire: what comm_stats counts (int8 payloads, per worker) against
+    # fp32, and what each rank gathers (the dequantized f32 wire rows of
+    # every worker, as the reference's all_gather)
+    spec = tr._row_spec
+    out["wire_bytes_int8"] = sum(spec.wire_bytes(f, MESH_COMM)
+                                 for f in range(spec.num_fragments))
+    out["wire_bytes_fp32"] = sum(spec.wire_bytes(f, "fp32")
+                                 for f in range(spec.num_fragments))
+    out["gathered_bytes_a_phase"] = sum(
+        x.numel() * 4 for x in pytree.leaves(tr.global_params))
+    losses = [p["mean_loss"] for p in phases]
+    print(f"[mesh one] {out}", flush=True)
+    assert all(np.isfinite(losses)) and losses[1] < losses[0], losses
+    if dev == "cuda":
+        check_launches(cfg, launched, steps, "mesh, a world of one")
+    t0 = time.perf_counter()
+    got = {k: [x.detach().clone() for x in v]
+           for k, v in mesh_state(tr).items()}
+    out["paths"] = [[x.cpu() for x in pytree.leaves(tr.path_params(p))]
+                    for p in range(TRAIN_PATHS)]
+    want = mesh_oracle(tr, cfg, ds, base, dev)
+    out["oracle_s"] = time.perf_counter() - t0
+    diff = mesh_differences(got, want)
+    out["oracle_leaves"] = {k: len(v) for k, v in want.items()}
+    out["oracle_differences"] = diff
+    del got, want
+    free_memory()
+    print(f"[mesh one] against the oracle: {out['oracle_leaves']} leaves, "
+          f"differences {diff}", flush=True)
+    assert not diff, diff
+    if dev == "cuda":
+        act = torch.profiler.ProfilerActivity
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.run_phase()
+            torch.cuda.synchronize()
+            out["profiled_phase_s"] = time.perf_counter() - t0
+        out["overlap"] = gather_overlap(prof)
+        print(f"[mesh one] profiled phase {out['profiled_phase_s']:.2f} s, "
+              f"gathers {out['overlap']}", flush=True)
+    del tr
+    free_memory()
+    return out
+
+
+def mesh_rank(rank: int, world: int, port: int, shm: str, cfg, ds,
+              dev: str, threads: int) -> None:
+    """(b)'s rank, in a spawned process: join the gloo world, train its
+    2 of the 4 workers for MESH_PHASES phases, and (rank 0) save every
+    path's parameters, the losses and the comm accounting."""
+    torch.set_num_threads(threads)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        base = torch.load(f"{shm}/base.pt", map_location=dev)
+        tr = make_trainer(cfg, mesh_dcfg(), ds, backend="mesh",
+                          **mesh_kwargs(base, dev))
+        assert (tr.mesh.world, tr.mesh.backend) == (world, "gloo"), tr.mesh
+        t0 = time.perf_counter()
+        losses = [tr.run_phase().mean_loss for _ in range(MESH_PHASES)]
+        seconds = time.perf_counter() - t0
+        paths = [[x.cpu() for x in pytree.leaves(tr.path_params(p))]
+                 for p in range(TRAIN_PATHS)]
+        if rank == 0:
+            torch.save({"paths": paths, "losses": losses,
+                        "comm_stats": dict(tr.comm_stats),
+                        "rows": list(tr.rows), "seconds": seconds},
+                       f"{shm}/rank0.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_two(card: str, cfg, ds, base, one: dict, ref_paths, dev: str
+             ) -> dict:
+    """(b) two spawned gloo ranks on the card, 2 workers each: every
+    path's parameters equal (a)'s bit for bit, the losses and the comm
+    accounting too."""
+    shm = Path(tempfile.mkdtemp(prefix="dipaco-mesh-", dir=MESH_SHM))
+    try:
+        torch.save(pytree.tree_map(lambda x: x.cpu(), base),
+                   shm / "base.pt")
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        ctx = mp.get_context("spawn")        # CUDA is not fork-safe
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, MESH_RANKS, port, str(shm), cfg, ds,
+                                   dev, torch.get_num_threads()))
+                 for r in range(MESH_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        end = time.monotonic() + MESH_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(0.0, end - time.monotonic()))
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            assert not hung, f"ranks {hung} still ran after the deadline"
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        assert codes == [0] * MESH_RANKS, f"rank exit codes {codes}"
+        got = torch.load(shm / "rank0.pt")
+    finally:
+        shutil.rmtree(shm, ignore_errors=True)
+    equal = [all(torch.equal(a, b) for a, b in zip(got["paths"][p],
+                                                     ref_paths[p]))
+             for p in range(TRAIN_PATHS)]
+    out = {"card": card, "ranks": MESH_RANKS, "rows_of_rank0": got["rows"],
+           "seconds": time.perf_counter() - t0,
+           "rank0_train_s": got["seconds"], "losses": got["losses"],
+           "comm_stats": got["comm_stats"], "paths_equal": equal}
+    print(f"[mesh two ranks] {out}", flush=True)
+    assert all(equal), equal
+    assert got["losses"] == [p["mean_loss"] for p in one["phases"]]
+    assert got["comm_stats"] == one["comm_stats"]
+    return out
+
+
+def mesh_resume(card: str, cfg, ds, base, dev: str) -> dict:
+    """(c) at SVC_DEPTH blocks: 1 phase, drop the trainer, ``resume`` from
+    its phase-state file, 1 more phase, against 2 uninterrupted phases
+    bit for bit; the files live in memory (MESH_SHM)."""
+    cfg, base = cut_depth(cfg, base, SVC_DEPTH)
+    root = Path(tempfile.mkdtemp(prefix="dipaco-mesh-", dir=MESH_SHM))
+    out = {"card": card, "blocks": SVC_DEPTH}
+    try:
+        ref = make_trainer(cfg, mesh_dcfg(), ds, backend="mesh",
+                           **mesh_kwargs(base, dev))
+        for _ in range(MESH_PHASES):
+            ref.run_phase()
+        want = {k: [x.detach().cpu() for x in v]
+                for k, v in mesh_state(ref).items()}
+        want_paths = [[x.cpu() for x in pytree.leaves(ref.path_params(p))]
+                      for p in range(TRAIN_PATHS)]
+        del ref
+        free_memory()
+        vic = make_trainer(cfg, mesh_dcfg(), ds, backend="mesh",
+                           ckpt_root=str(root), **mesh_kwargs(base, dev))
+        t0 = time.perf_counter()
+        vic.run_phase()
+        device_sync(dev)
+        out["phase_with_save_s"] = time.perf_counter() - t0
+        del vic                                           # the kill
+        free_memory()
+        t0 = time.perf_counter()
+        res = make_trainer(cfg, mesh_dcfg(), ds, backend="mesh",
+                           ckpt_root=str(root), resume=True,
+                           **mesh_kwargs(base, dev))
+        device_sync(dev)
+        out["resume_s"] = time.perf_counter() - t0
+        assert (res.phase, res.step) == (1, TAU), (res.phase, res.step)
+        res.run_phase()
+        got = {k: [x.detach().cpu() for x in v]
+               for k, v in mesh_state(res).items()}
+        paths = [[x.cpu() for x in pytree.leaves(res.path_params(p))]
+                 for p in range(TRAIN_PATHS)]
+        del res
+        files = sorted(root.glob("mesh_phase_*.npz"))
+        out["files"] = [f.name for f in files]
+        out["file_gb"] = [f.stat().st_size / 1e9 for f in files]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_memory()
+    out["differences"] = mesh_differences(got, want)
+    out["paths_equal"] = [all(torch.equal(a, b) for a, b in zip(x, y))
+                          for x, y in zip(paths, want_paths)]
+    print(f"[mesh resume] {out}", flush=True)
+    assert out["files"] == ["mesh_phase_000001.npz",
+                            "mesh_phase_000002.npz"], out["files"]
+    assert sum(out["file_gb"]) <= MESH_STATE_CAP_GB, out["file_gb"]
+    assert not out["differences"], out["differences"]
+    assert all(out["paths_equal"]), out["paths_equal"]
+    return out
+
+
+def mesh(card: str, cfg, ds, base, dev: str = "cuda") -> dict:
+    """Phase 10: (a), (b) and (c); nothing written to the disk."""
+    t0 = time.perf_counter()
+    one = mesh_one(card, cfg, ds, base, dev)
+    ref_paths = one.pop("paths")
+    out = {"one": one,
+           "two_ranks": mesh_two(card, cfg, ds, base, one, ref_paths, dev)}
+    del ref_paths
+    out["resume"] = mesh_resume(card, cfg, ds, base, dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[mesh] {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2936,6 +3342,16 @@ def main() -> int:
             attn_impl="pallas", dtype="bfloat16", route_prefix_len=32)
         _, train_ds, train_base = train(cfg)
         out = deploy(card, cfg, train_ds, train_base, 0.0)
+        print(card)
+        print(json.dumps(out))
+        return 0
+
+    if "--mesh" in sys.argv[1:]:
+        # phase 10 alone, on phase 4's data and weights (development)
+        cfg = get_config("dipaco-150m").replace(
+            attn_impl="pallas", dtype="bfloat16", route_prefix_len=32)
+        _, train_ds, train_base = train(cfg)
+        out = mesh(card, cfg, train_ds, train_base)
         print(card)
         print(json.dumps(out))
         return 0
@@ -3053,9 +3469,13 @@ def main() -> int:
     reset_counts()
     dep = deploy(card, cfg.replace(route_prefix_len=32), train_ds, train_base,
                  svc["file_gb"])
-    del train_base
     phase_s["deploy"] = time.perf_counter() - t0
     print(f"[phase] deploy: {phase_s['deploy']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    meshed = mesh(card, cfg.replace(route_prefix_len=32), train_ds, train_base)
+    del train_base
+    phase_s["mesh"] = time.perf_counter() - t0
+    print(f"[phase] mesh: {phase_s['mesh']:.1f} s", flush=True)
     for k in kernels:
         if k["name"] in ("flash_attention_lse", "flash_attention_dkv",
                          "flash_attention_dq"):
@@ -3087,13 +3507,14 @@ def main() -> int:
                            "flash_attention_dq"):
             k["launches_deploy_training"] = dep["training"]["launches"][
                 k["name"]]
+            k["launches_mesh"] = meshed["one"]["launches"][k["name"]]
     print(f"[phase] seconds: {phase_s}")
 
     summary = {"kernels": kernels}
     print(json.dumps({"serve": runs, "prefill_decode_parity": parity,
                       "train": trained, "train_grad_parity": grads,
                       "families": families, "continuous": cont,
-                      "service": svc, "deploy": dep,
+                      "service": svc, "deploy": dep, "mesh": meshed,
                       "phase_seconds": phase_s}))
     print(card)
     print(json.dumps(summary))

@@ -68,8 +68,9 @@ def outer_step(worker_params, global_params, outer_state, axes, mix_layers,
     new_global, new_state = nesterov_update(
         og, outer_state, global_params, lr=lr, momentum=momentum,
         nesterov=nesterov)
-    # redistribute: worker copies <- updated module store view
-    new_worker = tree_map(lambda g, w: g.to(w.dtype), new_global,
+    # redistribute: worker copies <- updated module store view (copies:
+    # an in-place inner step must not write through into the globals)
+    new_worker = tree_map(lambda g, w: g.to(w.dtype, copy=True), new_global,
                           worker_params)
     return new_worker, new_global, new_state
 
@@ -167,7 +168,7 @@ def streaming_outer_step(worker_params, global_params, frag_states, axes,
     synced = {i for f in sync for i in spec.indices[f]}
     w_leaves = list(spec.flatten(worker_params))
     for i in synced:
-        w_leaves[i] = g_leaves[i].to(w_leaves[i].dtype)
+        w_leaves[i] = g_leaves[i].to(w_leaves[i].dtype, copy=True)
     return spec.unflatten(w_leaves), new_global, new_states
 
 
@@ -207,14 +208,17 @@ def make_fragment_delta_fn(comm_dtype: str):
 
 def make_fragment_apply_fn(*, lr=0.7, momentum=0.9, nesterov=True):
     """Per-fragment outer update: ``(og_f, state_f, g_f, w_f) ->
-    (new_g_f, new_state_f, new_w_f)``, one Nesterov update per leaf."""
+    (new_g_f, new_state_f, new_w_f)``, one Nesterov update per leaf.  The
+    workers' new leaves are copies of the global ones, never the same
+    tensors (even in f32), so an in-place inner step on the workers
+    leaves the global copies as they are."""
     def fn(og_f, state_f, g_f, w_f):
         new_g, new_s, new_w = {}, {}, {}
         for i in og_f:
             new_g[i], new_s[i] = _nesterov_leaf(
                 og_f[i], state_f[i], g_f[i], lr=lr, momentum=momentum,
                 nesterov=nesterov)
-            new_w[i] = new_g[i].to(w_f[i].dtype)
+            new_w[i] = new_g[i].to(w_f[i].dtype, copy=True)
         return new_g, new_s, new_w
 
     return fn

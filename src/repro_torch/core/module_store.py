@@ -71,6 +71,7 @@ class ModuleStore:
                 template_params, self._kind)
 
     # ------------------------------------------------------------------
+    # analysis: lockfree(readers see an atomic swap of immutable trees)
     def assemble(self, path_idx: int):
         """Materialize the parameter tree for path ``path_idx``."""
         segs = []
@@ -92,6 +93,7 @@ class ModuleStore:
         return walk(self._kind, self.shared, *segs)
 
     # ------------------------------------------------------------------
+    # analysis: lockfree(readers see an atomic swap of immutable trees)
     def module_params(self, level: int, expert: int):
         return pytree.tree_map(lambda x: x[expert], self.levels[level])
 
@@ -129,6 +131,7 @@ class ModuleStore:
             lambda leaf, kind: leaf if kind == "shared" else None,
             tree, self._kind)
 
+    # analysis: lockfree(size probe; stale tree reference is fine)
     def num_params(self) -> int:
         n = 0
         for lvl in self.levels:

@@ -5,14 +5,16 @@ from .task_queue import Task, TaskQueue
 from .ckpt_db import CheckpointDB
 from .worker_pool import Monitor, WorkerPool
 from .outer_executor import ShardedOuterExecutors
-from .transport import (FaultInjector, RetryingTransport, RetryPolicy,
-                        TransportError, make_transport)
+from .transport import (FaultInjector, InProcessTransport, MeshTransport,
+                        RetryingTransport, RetryPolicy, TransportError,
+                        make_transport)
 from .fleet import ChaosController, FleetController, WorkerProfile
 from .service import PhaseTimeoutError, TrainingService
 from .trainer import InfraDiPaCoTrainer
 
 __all__ = ["Task", "TaskQueue", "CheckpointDB", "Monitor", "WorkerPool",
-           "ShardedOuterExecutors", "FaultInjector", "RetryingTransport",
+           "ShardedOuterExecutors", "FaultInjector", "InProcessTransport",
+           "MeshTransport", "RetryingTransport",
            "RetryPolicy", "TransportError", "make_transport",
            "ChaosController", "FleetController", "WorkerProfile",
            "PhaseTimeoutError", "TrainingService", "InfraDiPaCoTrainer"]

@@ -163,9 +163,11 @@ class TrainingService:
         # (infra/transport.py) — fold values are bit-identical either
         # way, so resume replay (which bypasses the transport) works
         # across backends.  transport_retries/transport_faults wrap it
-        # in the retry/backoff/fault-injection chaos layer.
+        # in the retry/backoff/fault-injection chaos layer.  On the CPU
+        # the mesh transport's one device is the service's own.
         self.transport = make_transport(
             dcfg.transport, comm_dtype=self._comm_dtype,
+            devices=[self.device] if self.device.type != "cuda" else None,
             retries=dcfg.transport_retries, faults=dcfg.transport_faults,
             telemetry=self.tel)
         self._pending: dict = {i: [] for i in range(W)}   # s -> [(ph, f)]

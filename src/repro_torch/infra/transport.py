@@ -2,17 +2,23 @@
 ``repro/infra/transport.py``.
 
 The service's workers hand their outer-delta wire payloads to the
-executors through a ``Transport``.
+executors through a ``Transport``.  Two backends, both in one process:
 
 ``InProcessTransport``
     The dequantized fp32 wire tree is passed by reference, bytes are
     *simulated* from the fragment layout (``core.fragments._wire_bytes``).
-    Zero copies, single process.
+    Zero copies.
 
-``"mesh"`` (the reference's ``MeshTransport``, which ships the encoded
-payload between devices) needs the port's multi-process training on
-``torch.distributed`` (ROADMAP queue 1, item 3) and raises
-``NotImplementedError`` here.
+``MeshTransport``
+    The wire is the *encoded* representation
+    (``core.fragments.encode_wire``: int8 ``q`` buffers + per-leaf
+    scales, nibble-packed for int4).  ``ship`` moves the payload to the
+    reporting shard's device, then to the executors' device (a real
+    copy between cards where there are several), with *measured* payload
+    bytes, and decodes it there.  ``decode_wire . encode_wire`` is
+    bitwise ``fake_quantize``, so the executors fold the same values as
+    with the in-process backend and resume stays bit-exact; only the
+    bytes become real.
 
 Either backend can be wrapped in a ``RetryingTransport``, which adds a
 retry/exponential-backoff policy, receiver-side crc32 checksum
@@ -37,26 +43,28 @@ import numpy as np
 import torch
 
 from repro_torch.core import pytree
-from repro_torch.core.fragments import payload_checksum, payload_nbytes
+from repro_torch.core.fragments import (decode_wire, payload_checksum,
+                                        payload_nbytes)
 from repro_torch.obs import as_telemetry
 
 TRANSPORTS = ("inproc", "mesh")
 
 
-def make_transport(name: str, *, comm_dtype="fp32", retries: int = 0,
-                   faults=None, sleep=None, telemetry=None):
+def make_transport(name: str, *, comm_dtype="fp32", devices=None,
+                   retries: int = 0, faults=None, sleep=None,
+                   telemetry=None):
     """Build a transport backend; ``retries > 0`` or a ``faults`` spec
     wraps it in a :class:`RetryingTransport`.  ``faults`` is a mapping
     of :class:`FaultInjector` kwargs (``seed``/``drop``/``dup``/
-    ``delay``/``corrupt``/``delay_s``).  ``telemetry`` (repro_torch.obs)
-    records ``transport.retry`` instants (retry layer)."""
+    ``delay``/``corrupt``/``delay_s``).  ``devices`` are the mesh
+    transport's (default: every visible CUDA device).  ``telemetry``
+    (repro_torch.obs) records ``transport.ship`` spans (mesh) and
+    ``transport.retry`` instants (retry layer)."""
     if name == "inproc":
         base = InProcessTransport()
     elif name == "mesh":
-        raise NotImplementedError(
-            "transport 'mesh' is not ported to repro_torch yet: it ships "
-            "encoded payloads between processes on torch.distributed "
-            "(ROADMAP queue 1, item 3); use transport='inproc'")
+        base = MeshTransport(comm_dtype, devices=devices,
+                             telemetry=telemetry)
     else:
         raise ValueError(f"transport {name!r} not in {TRANSPORTS}")
     if retries or faults:
@@ -82,6 +90,63 @@ class InProcessTransport:
     def ship(self, shard: int, wire, payload, *, phase=None):
         self.stats["sends"] += 1
         return wire
+
+
+class MeshTransport:
+    """Encoded-payload transfer between devices, in one process.
+
+    The worker-side encoder (``quantize_with_feedback(...,
+    return_payload=True)``) produced ``payload``; ``ship`` moves it to
+    the shard's home device (round-robin over ``devices``), then to the
+    executors' device (``devices[0]``, where the module store lives; a
+    real copy between cards where there are several), decodes it there
+    and waits for the copies and the decode to finish before it returns,
+    so the measured send is complete before the executors fold it.  With
+    one device every hop stays on it and the backend keeps the
+    in-process semantics.
+    """
+
+    name = "mesh"
+
+    def __init__(self, comm_dtype, *, devices=None, telemetry=None):
+        self.comm_dtype = comm_dtype
+        if devices:
+            self.devices = [torch.device(d) for d in devices]
+        else:
+            self.devices = [torch.device("cuda", i)
+                            for i in range(torch.cuda.device_count())]
+        if not self.devices:
+            raise RuntimeError(
+                "MeshTransport needs a device: no CUDA device is available; "
+                "pass devices=[torch.device('cpu')] to run on the CPU")
+        self.exec_device = self.devices[0]
+        self.tel = as_telemetry(telemetry)
+        self._lock = threading.Lock()
+        self.stats = {"sends": 0, "payload_bytes": 0, "device_hops": 0}
+
+    def worker_device(self, shard: int) -> torch.device:
+        return self.devices[shard % len(self.devices)]
+
+    def ship(self, shard: int, wire, payload, *, phase=None):
+        with self.tel.span("transport.ship", shard=shard, phase=phase):
+            return self._ship(shard, wire, payload)
+
+    def _ship(self, shard: int, wire, payload):
+        src = self.worker_device(shard)
+        # the payload originates on the worker's device ...
+        payload = pytree.tree_map(lambda x: x.to(src), payload)
+        # ... and this copy IS the wire transfer
+        moved = pytree.tree_map(lambda x: x.to(self.exec_device), payload)
+        nbytes = payload_nbytes(moved, self.comm_dtype)
+        decoded = decode_wire(moved, self.comm_dtype, like=wire)
+        for dev in {src, self.exec_device}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        with self._lock:
+            self.stats["sends"] += 1
+            self.stats["payload_bytes"] += int(nbytes)
+            self.stats["device_hops"] += int(src != self.exec_device)
+        return decoded
 
 
 # ---------------------------------------------------------------------

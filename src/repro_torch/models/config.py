@@ -160,8 +160,8 @@ class DiPaCoConfig:
     # delta transport backend (infra/transport.py): "inproc" hands the
     # dequantized wire tree straight to the executors (simulated byte
     # accounting only); "mesh" ships the *encoded* payload across a
-    # device boundary with jax.device_put and decodes on the executor's
-    # device — bit-identical fold values, real measured bytes.
+    # device boundary and decodes on the executors' device —
+    # bit-identical fold values, real measured bytes.
     transport: str = "inproc"
     # heterogeneous-fleet comm policy (core/fragments.py): "uniform"
     # quantizes every leaf at ``comm_dtype`` (the bit-identical legacy

@@ -17,9 +17,10 @@ import torch
 from repro.infra import task_queue as jtq
 from repro.infra import transport as jtransport
 from repro_torch.core import pytree
-from repro_torch.infra import (FaultInjector, Monitor, RetryingTransport,
-                               RetryPolicy, Task, TaskQueue, TransportError,
-                               WorkerPool, WorkerProfile, make_transport)
+from repro_torch.infra import (FaultInjector, MeshTransport, Monitor,
+                               RetryingTransport, RetryPolicy, Task,
+                               TaskQueue, TransportError, WorkerPool,
+                               WorkerProfile, make_transport)
 from repro_torch.infra import task_queue as ttq
 from repro_torch.infra.task_queue import Barrier
 from repro_torch.kernels import build
@@ -208,8 +209,13 @@ def test_pool_resize_and_monitor_follow_target():
 
 
 def test_transports_and_fault_injection_match_reference():
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        make_transport("mesh")
+    mesh = make_transport("mesh", devices=[torch.device("cpu")])
+    assert isinstance(mesh, MeshTransport) and mesh.name == "mesh"
+    assert isinstance(make_transport("mesh", devices=["cpu"], retries=1)
+                      .inner, MeshTransport)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_transport("mesh")
     with pytest.raises(ValueError):
         make_transport("carrier-pigeon")
     t = make_transport("inproc")

@@ -128,8 +128,12 @@ class _Shut:
 
 def test_make_trainer_backends_and_device_rule(cfg, tiny_docs, base):
     ds = _ds(tiny_docs)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        make_trainer(cfg, DiPaCoConfig(), ds, backend="mesh", device="cpu")
+    from repro_torch.launch.train import MeshStreamingTrainer
+    assert isinstance(make_trainer(cfg, DiPaCoConfig(levels=(2, 2)), ds,
+                                   backend="mesh", device="cpu",
+                                   base_params=from_numpy_tree(
+                                       base, device="cpu")),
+                      MeshStreamingTrainer)
     for backend in ("barrier", "service"):
         with pytest.raises(ValueError, match="ckpt_root"):
             make_trainer(cfg, DiPaCoConfig(), ds, backend=backend,

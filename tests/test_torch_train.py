@@ -449,8 +449,15 @@ def test_trainer_surface(cfg, tiny_base, tiny_docs):
     assert diloco_config(4).levels == (1,)
     docs, doms = tiny_docs
     ds = sharder.shard_documents(docs, doms, 4)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        make_trainer(cfg, DiPaCoConfig(), ds, backend="mesh", device="cpu")
+    from repro_torch.launch.train import MeshStreamingTrainer
+    from repro_torch.training import Trainer
+    mesh = make_trainer(cfg, DiPaCoConfig(levels=(2, 2)), ds, backend="mesh",
+                        device="cpu")
+    assert isinstance(mesh, MeshStreamingTrainer) and isinstance(mesh,
+                                                                 Trainer)
+    with pytest.raises(ValueError, match="ckpt_root"):    # resumes from one
+        make_trainer(cfg, DiPaCoConfig(), ds, backend="mesh", device="cpu",
+                     resume=True)
     for backend in ("barrier", "service"):     # they persist to a DB
         with pytest.raises(ValueError, match="ckpt_root"):
             make_trainer(cfg, DiPaCoConfig(), ds, backend=backend,
