@@ -169,6 +169,35 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    4.3 GB each) go to ``/dev/shm``, not the disk, fail above 10 GB, and
    are removed.
 
+11. The other families at full width, in bf16 with ``attn_impl=
+   "pallas"``, each family's weights freed before the next's are drawn;
+   nothing written to the disk.  ``dipaco-dense-1b`` (24 blocks, 1
+   path), ``qwen3-8b`` (36, 2 paths), ``pixtral-12b`` (40, 1 path, text
+   through the engine), ``moonshot-v1-16b-a3b`` (48 blocks of 64 experts
+   top-6 plus 2 shared, 1 path of about 53 GiB) and ``jamba-v0.1-52b``
+   (8 of its 32 blocks: one period of its pattern, 2 paths) serve phase
+   3's traffic through the one-shot engine (the plain pass, then a
+   profiled generate of 16-token prompts), every kernel launching as its
+   blocks and steps need; prefill + 16 decodes through
+   the kernels against the plain path in bf16 at the served depth and in
+   f32 at 4 blocks (jamba at 8).  pixtral's patch stub: 2 requests of
+   1024 patch positions and 64 text tokens through ``api.prefill`` and
+   16 ``serve_step``s, kernels against plain.  ``whisper-base`` through
+   ``models.api``: 8 requests of 1500 frames, a 16-token prompt
+   replayed, 16 new tokens, with the cross K/V and without (the logits
+   must agree), then kernels against plain (6 + 6 and 4 + 4 blocks).
+   ``dipaco-dense-1b`` trained at 24 blocks through ``make_trainer(
+   backend="vector")`` at levels (1,) (one worker, batch 8, phase 4's
+   2048 documents as one shard, 2 phases of tau 4, remat): the loss
+   must fall and the LSE forward, dK/dV and dQ launch exactly as the
+   steps need.  One inner step's gradients, kernels against plain, for
+   qwen3-8b, pixtral-12b (with 256 patch positions), moonshot and
+   whisper-base (4 + 4) at 4 blocks in f32 and bf16, and jamba at 8 in
+   bf16.  Phase 2 checks and times the kernels at these families'
+   shapes beforehand: the expert GEMM and its dX / dW at moonshot's and
+   jamba's capacities, flash decode at B8 H32 KH8 D128, the LSE forward
+   and its backward at B8 S1024 H16 D128.
+
 ``python3 chip_smoke.py --service-probe`` runs phase 4's pipeline and a
 probe of the stale service's loss (the vector trainer and the service
 on one thread at lag 0, at lag 1 and at lag 1 without outer momentum,
@@ -179,7 +208,8 @@ phase 8, then phase 8's barrier and planted faults at 12 blocks.  At
 ``TMPDIR``: give it a ``TMPDIR`` in memory (``/dev/shm``) that holds
 them.  ``python3 chip_smoke.py --deploy`` runs phase 4's pipeline and
 then phase 9 alone, ``python3 chip_smoke.py --mesh`` phase 4's pipeline
-and then phase 10 alone.
+and then phase 10 alone, ``python3 chip_smoke.py --families`` phase 2
+and then phase 11 alone.
 
 It prints one ``{"kernels": [...]}`` line before the card's line, with
 the backward kernels' rows too, and the last line is ``{"ok": true,
@@ -242,8 +272,9 @@ from repro_torch.kernels.router_assign import router_assign  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
 from repro_torch.launch.steps import (make_segment_scan_fn,  # noqa: E402
                                       value_and_grad)
-from repro_torch.models import api, moe_layer  # noqa: E402
+from repro_torch.models import api, encdec, moe_layer  # noqa: E402
 from repro_torch.models.config import DiPaCoConfig  # noqa: E402
+from repro_torch.models.layers import torch_dtype  # noqa: E402
 from repro_torch.models.params import (LAYERS, param_axes,  # noqa: E402
                                        tree_leaves)
 from repro_torch.optim import adamw_init, adamw_update_  # noqa: E402
@@ -532,27 +563,31 @@ def check_flash_decode(gen) -> dict:
         "cases": rows}
 
 
-def fd_timings(gen, b, h, d, T, ci) -> dict:
+def fd_timings(gen, b, h, d, T, ci, kh=None) -> dict:
     """bf16: eager (the host's launch cost included) and replayed from a
-    CUDA graph, beside masked SDPA timed both ways."""
+    CUDA graph, beside masked SDPA (with ``enable_gqa`` where there are
+    fewer KV heads than query heads) timed both ways."""
     dtype = torch.bfloat16
+    kh = kh or h
     q = randn(gen, b, h, d, dtype=dtype)
-    kc, vc = (randn(gen, b, T, h, d, dtype=dtype) for _ in range(2))
+    kc, vc = (randn(gen, b, T, kh, d, dtype=dtype) for _ in range(2))
     cit = torch.tensor(ci, dtype=torch.int32, device="cuda")
     err = (flash_decode(q, kc, vc, cit).float()
            - ref.flash_decode_ref(q, kc, vc, cit).float()).abs().max().item()
-    assert err <= TOL[dtype], (b, h, d, T, err)
-    n_bytes, n_ops = decode_work(cit, T, h, d, None, h, kc.element_size())
+    assert err <= TOL[dtype], (b, h, kh, d, T, err)
+    n_bytes, n_ops = decode_work(cit, T, kh, d, None, h, kc.element_size())
     bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
     pos = ref.ring_positions(cit, T)
     mask = ((pos >= 0) & (pos <= cit.long()[:, None]))[:, None, None, :]
     qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    gqa = {"enable_gqa": True} if kh != h else {}
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              **gqa)
 
     out = {
-        "shape": [b, h, h, d, T], "dtype": "bf16",
+        "shape": [b, h, kh, d, T], "dtype": "bf16",
         "max_abs_err": err, "max_err": err,
         "ms": time_ms(lambda: flash_decode(q, kc, vc, cit)),
         "graph_ms": graph_ms(lambda: flash_decode(q, kc, vc, cit)),
@@ -586,6 +621,45 @@ def training_attention(q, k, v, do, causal, window) -> tuple:
     return (o, lse, dq, dk, dv), (po, plse, pdq, pdk, pdv)
 
 
+def held_to_plain(got, plain, row: dict, dtype, s: int) -> dict:
+    """The training kernels' outputs (``training_attention``) against
+    their plain versions: o within TOL, the LSE within 1e-4, dQ, dK and dV
+    within GRAD_TOL of the largest of each.  Fills ``row`` with the
+    errors and the bars, prints it, and fails if one is over its bar."""
+    errs = {n: rel_err(a, p) for n, a, p in
+            zip(("o", "lse", "dq", "dk", "dv"), got, plain)}
+    errs["o"] = (got[0].float() - plain[0].float()).abs().max().item()
+    errs["lse"] = (got[1] - plain[1]).abs().max().item()
+    row.update({"dtype": str(dtype), "o_max_abs_err": errs["o"],
+                "lse_max_abs_err": errs["lse"],
+                "grad_rel_err": {n: errs[n] for n in ("dq", "dk", "dv")},
+                "tol": {"o": TOL[dtype], "lse": 1e-4,
+                        "grad_rel": GRAD_TOL[dtype]}})
+    rel = ("dq", "dk", "dv")
+    if s == 1:
+        # one key: P is 1 and dP equals delta, so dS, dq and dk are
+        # zero but for rounding: held to TOL in absolute terms
+        rel = ("dv",)
+        row["zero_grad_max_abs"] = {
+            n: got[i].float().abs().max().item()
+            for n, i in (("dq", 2), ("dk", 3))}
+    print(f"[train_attention] {row}")
+    assert errs["o"] <= TOL[dtype] and errs["lse"] <= 1e-4, row
+    assert all(errs[n] <= GRAD_TOL[dtype] for n in rel), row
+    assert all(e <= TOL[dtype] for e in
+               row.get("zero_grad_max_abs", {}).values()), row
+    return row
+
+
+def check_training_case(gen, b, s, h, kh, d, causal, w, dtype) -> dict:
+    q, do = (randn(gen, b, s, h, d, dtype=dtype) for _ in range(2))
+    k, v = (randn(gen, b, s, kh, d, dtype=dtype) for _ in range(2))
+    got, plain = training_attention(q, k, v, do, causal, w)
+    return held_to_plain(got, plain, {"shape": [b, s, h, kh, d],
+                                      "causal": causal, "window": w},
+                         dtype, s)
+
+
 def check_training_attention(gen) -> list:
     # (B, S, H, KH, D, causal, window): the five backward cases of
     # tests/test_kernels.py (ragged S = 80, a non-causal GQA window), the
@@ -598,37 +672,8 @@ def check_training_attention(gen) -> list:
              (1, 333, 8, 2, 64, True, 100), (8, 1024, 16, 16, 64, True, None),
              (2, 65, 4, 2, 128, True, 7), (2, 65, 8, 2, 32, False, None),
              (2, 1, 4, 2, 64, True, None)]
-    rows = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for b, s, h, kh, d, causal, w in cases:
-            q, do = (randn(gen, b, s, h, d, dtype=dtype) for _ in range(2))
-            k, v = (randn(gen, b, s, kh, d, dtype=dtype) for _ in range(2))
-            got, plain = training_attention(q, k, v, do, causal, w)
-            errs = {n: rel_err(a, p) for n, a, p in
-                    zip(("o", "lse", "dq", "dk", "dv"), got, plain)}
-            errs["o"] = (got[0].float() - plain[0].float()).abs().max().item()
-            errs["lse"] = (got[1] - plain[1]).abs().max().item()
-            row = {"shape": [b, s, h, kh, d], "causal": causal, "window": w,
-                   "dtype": str(dtype), "o_max_abs_err": errs["o"],
-                   "lse_max_abs_err": errs["lse"],
-                   "grad_rel_err": {n: errs[n] for n in ("dq", "dk", "dv")},
-                   "tol": {"o": TOL[dtype], "lse": 1e-4,
-                           "grad_rel": GRAD_TOL[dtype]}}
-            rel = ("dq", "dk", "dv")
-            if s == 1:
-                # one key: P is 1 and dP equals delta, so dS, dq and dk are
-                # zero but for rounding: held to TOL in absolute terms
-                rel = ("dv",)
-                row["zero_grad_max_abs"] = {
-                    n: got[i].float().abs().max().item()
-                    for n, i in (("dq", 2), ("dk", 3))}
-            rows.append(row)
-            print(f"[train_attention] {row}")
-            assert errs["o"] <= TOL[dtype] and errs["lse"] <= 1e-4, row
-            assert all(errs[n] <= GRAD_TOL[dtype] for n in rel), row
-            assert all(e <= TOL[dtype] for e in
-                       row.get("zero_grad_max_abs", {}).values()), row
-    return rows
+    return [check_training_case(gen, *case, dtype)
+            for dtype in (torch.bfloat16, torch.float32) for case in cases]
 
 
 def backward_is_deterministic(q, k, v, do, lse, delta) -> dict:
@@ -652,10 +697,14 @@ def training_attention_timings(gen, b, s, h, d) -> list:
     its backward alone (``autograd.grad`` of a kept forward) for dK/dV
     and dQ, which it computes together.  The backward is also printed
     as forward+backward minus forward, a reading that spreads more
-    between calls."""
+    between calls.  The timed inputs' outputs are held to their plain
+    versions as ``check_training_attention``'s cases are."""
     dtype = torch.bfloat16
     q, k, v, do = (randn(gen, b, s, h, d, dtype=dtype) for _ in range(4))
     got, plain = training_attention(q, k, v, do, True, None)
+    held = held_to_plain(got, plain, {"shape": [b, s, h, h, d],
+                                      "causal": True, "window": None},
+                         dtype, s)
     o, lse = plain[0], plain[1]
     delta = attention_delta(do, o)
     pairs = attention_pairs(s, True, None)
@@ -715,11 +764,11 @@ def training_attention_timings(gen, b, s, h, d) -> list:
             "shape": [b, s, h, h, d], "dtype": "bf16", "max_abs_err": err,
             "ms": time_ms(kernel, 20), "plain_ms": time_ms(plain_fn, 5),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "library_call": lib_call})
+            "library_ms": lib_ms, "library_call": lib_call,
+            "check": held})
         if key != "lse":
             out[-1]["library_ms_fwd_bwd_minus_fwd"] = bwd_diff_ms
             out[-1]["bit_identical_relaunch"] = same
-    out[0]["cases"] = check_training_attention(gen)
     return out
 
 
@@ -1143,22 +1192,213 @@ def gemm_bwd_timings(xe, w, dy, errs) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2, the families' shapes (phase 11's)
+# ---------------------------------------------------------------------------
+# (family, E, d, f, {kind: C}): the expert GEMM's capacities in phase 11:
+# a decode step of the requests on one path (dropless C = their number:
+# moonshot-v1-16b-a3b serves its 8 on its one path, jamba-v0.1-52b's
+# router splits them 4 and 4 over its two; ``family_launches`` fails the
+# run if the serving run launched no decode at that C), the routing call
+# over their 32-token prefixes (moonshot-v1-16b-a3b: int(256 * 6 * 1.25 / 64)
+# = 30; jamba-v0.1-52b: int(256 * 2 * 1.25 / 16) = 40), the 48-token
+# prefill of the kernels-vs-plain check (45; 60) and a group of 1024
+# tokens, as the router's 64 prefixes and the gradient check's two
+# 1024-token documents give (two groups of 120; of 160, folded into C)
+GEMM_FAMILIES = (
+    ("moonshot-v1-16b-a3b", 64, 2048, 1408,
+     {"decode": 8, "routing": 30, "prefill": 45, "train": 240}),
+    ("jamba-v0.1-52b", 16, 4096, 14336,
+     {"decode": 4, "routing": 40, "prefill": 60, "train": 320}))
+GEMM_TIMED = ("decode", "routing")
+
+
+def gemm_row(name: str, family: str, kind: str, shape, main: dict,
+             down: dict) -> dict:
+    return {"name": f"{name}:{family}:{kind}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+            "replaces": "src/repro/kernels/moe_gmm.py:38" if name ==
+            "expert_gemm" else "none: the TPU package differentiates the "
+            "expert einsum; backward of src/repro/kernels/moe_gmm.py:38",
+            "launches": None, "shape": list(shape), "dtype": "bf16",
+            **main, "library_call": {"expert_gemm": "torch.bmm",
+                                     "expert_gemm_dx": "torch.bmm(dy, w^T)",
+                                     "expert_gemm_dw": "torch.bmm(x^T, dy)"
+                                     }[name],
+            "down_projection": down}
+
+
+def check_gemm_families(gen) -> list:
+    """The expert GEMM and its dX / dW at phase 11's capacities, each
+    product's gate/up (d -> f) and down (f -> d) shapes, against their
+    plain versions in bf16 and f32; the forward timed at the decode and
+    routing capacities, dX and dW at the training capacity."""
+    rows, cases = [], []
+    for family, e, d, f, caps in GEMM_FAMILIES:
+        for kind, c in caps.items():
+            timed = {}
+            for dd, ff in ((d, f), (f, d)):
+                for dtype in (torch.bfloat16, torch.float32):
+                    xe = randn(gen, e, c, dd, dtype=torch.float32).mul_(
+                        0.5 * dd ** -0.5).to(dtype)
+                    w = randn(gen, e, dd, ff, dtype=dtype)
+                    out = expert_gemm(xe, w)
+                    torch.cuda.synchronize()
+                    plain = ref.expert_gemm_ref(xe, w)
+                    err = (out.float() - plain.float()).abs().max().item()
+                    case = {"shape": [e, c, dd, ff], "dtype": str(dtype),
+                            "max_abs_err": err, "tol": TOL[dtype]}
+                    print(f"[expert_gemm {family}] {case}")
+                    cases.append(case)
+                    assert err <= TOL[dtype], case
+                    if dtype == torch.bfloat16 and kind in GEMM_TIMED:
+                        timed[dd] = {"max_abs_err": err,
+                                     **gemm_timings(xe, w, out, plain)}
+                    if kind in ("decode", "train"):
+                        xb = xe.float().mul_(2 * c ** -0.5 * dd ** 0.5
+                                             ).to(dtype)
+                        wb = w.float().mul_(ff ** -0.5).to(dtype)
+                        dy = randn(gen, e, c, ff, dtype=torch.float32
+                                   ).mul_(0.5).to(dtype)
+                        dx = expert_gemm_dx(dy, wb, xb)
+                        dw = expert_gemm_dw(xb, dy, wb)
+                        torch.cuda.synchronize()
+                        pdx, pdw = ref.expert_gemm_bwd_ref(xb, wb, dy)
+                        errs = {
+                            "dx": (dx.float() - pdx.float()).abs().max()
+                            .item(),
+                            "dw": (dw.float() - pdw.float()).abs().max()
+                            .item()}
+                        case = {"shape": [e, c, dd, ff], "dtype": str(dtype),
+                                "backward_max_abs_err": errs,
+                                "tol": TOL[dtype]}
+                        print(f"[expert_gemm_bwd {family}] {case}")
+                        cases.append(case)
+                        assert max(errs.values()) <= TOL[dtype], case
+                        if dtype == torch.bfloat16 and kind == "train":
+                            timed[("bwd", dd)] = gemm_bwd_timings(
+                                xb, wb, dy, errs)
+            if kind in GEMM_TIMED:
+                rows.append(gemm_row("expert_gemm", family, kind,
+                                     (e, c, d, f), timed[d], timed[f]))
+            if kind == "train":
+                for name, key in (("expert_gemm_dx", "dx"),
+                                  ("expert_gemm_dw", "dw")):
+                    rows.append(gemm_row(name, family, kind, (e, c, d, f),
+                                         timed[("bwd", d)][key],
+                                         timed[("bwd", f)][key]))
+    rows[0]["cases"] = cases
+    return rows
+
+
+def check_families_attention(gen) -> list:
+    """flash decode at the GQA families' decode (H32 KH8 D128 over phase
+    3's 80-token cache: B8, the requests of a family served on one path,
+    and B4, those of qwen3-8b's and jamba-v0.1-52b's two paths, which
+    their routers split 4 and 4; at the last step and mid-prompt; bf16 and
+    f32, int8 or not), and the LSE forward, dK/dV and dQ at the dense
+    baseline's training shape (B8 S1024 H16 D128)."""
+    fds = []
+    for b in (REQUESTS, REQUESTS // 2):
+        rows = []
+        for dtype in (torch.bfloat16, torch.float32):
+            for int8 in (False, True):
+                for ci in ([CACHE_LEN - 1] * b, list(range(0, 80, 10))[:b]):
+                    q = randn(gen, b, 32, 128, dtype=dtype)
+                    kc, vc = (randn(gen, b, CACHE_LEN, 8, 128, dtype=dtype)
+                              for _ in range(2))
+                    cit = torch.tensor(ci, dtype=torch.int32, device="cuda")
+                    ks = vs = None
+                    if int8:
+                        (kc, ks), (vc, vs) = quantize(kc), quantize(vc)
+                    out = flash_decode(q, kc, vc, cit, k_scale=ks,
+                                       v_scale=vs)
+                    torch.cuda.synchronize()
+                    plain = ref.flash_decode_ref(q, kc, vc, cit, k_scale=ks,
+                                                 v_scale=vs)
+                    err = (out.float() - plain.float()).abs().max().item()
+                    row = {"shape": [b, 32, 8, 128, CACHE_LEN],
+                           "dtype": str(dtype), "int8": int8,
+                           "max_abs_err": err, "tol": TOL[dtype]}
+                    print(f"[flash_decode G4] {row}")
+                    rows.append(row)
+                    assert err <= TOL[dtype], row
+        fds.append({
+            "name": f"flash_decode:gqa-d128:b{b}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:103",
+            "launches": None,
+            **fd_timings(gen, b, 32, 128, CACHE_LEN, [CACHE_LEN - 1] * b,
+                         kh=8),
+            "library_call": "F.scaled_dot_product_attention(attn_mask="
+                            "ring mask, enable_gqa=True)", "cases": rows})
+    train = training_attention_timings(gen, TRAIN_BATCH, DOC_LEN, 16, 128)
+    for r in train:
+        r["name"] += ":dipaco-dense-1b"
+    # the timed rows hold bf16; f32 at the same shape
+    train[0]["cases"] = [check_training_case(gen, TRAIN_BATCH, DOC_LEN, 16,
+                                             16, 128, True, None,
+                                             torch.float32)]
+    return [*fds, *train]
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: serving at full width
 # ---------------------------------------------------------------------------
 class CheckedEngine(PathServingEngine):
     """The one-shot engine, keeping a device-side flag of whether every
     decode step's logits were finite (read once, after generate), and
-    counting its decode steps and routing-feature calls."""
+    counting its decode steps and routing-feature calls.  The kernels'
+    launches are kept apart by call in ``launches_by_call``: a decode step
+    of B requests under ``"decode:B"``, a feature call over N tokens under
+    ``"features:N"``.  Each decode step is timed by CUDA events around it
+    (host clock off the card), read by ``step_ms``: the engine runs as it
+    would, with no synchronize added."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.finite = torch.ones((), dtype=torch.bool, device=self.device)
+        self.decodes = self.feature_calls = 0
+        self.launches_by_call, self.step_marks = {}, []
+
+    def _mark(self):
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def _tally(self, call: str, before: dict) -> None:
+        seen = self.launches_by_call.setdefault(call, dict.fromkeys(before,
+                                                                    0))
+        for k, n in counts().items():
+            seen[k] += n - before[k]
 
     def _decode(self, params, tok, cache, idx):
+        before, start = counts(), self._mark()
         logits, cache = super()._decode(params, tok, cache, idx)
+        self.step_marks.append((start, self._mark()))
         self.finite = self.finite & torch.isfinite(logits).all()
         self.decodes += 1
+        self._tally(f"decode:{tok.shape[0]}", before)
         return logits, cache
 
     def _feats(self, tokens):
+        before = counts()
         self.feature_calls += 1
-        return super()._feats(tokens)
+        z = super()._feats(tokens)
+        self._tally(f"features:{np.asarray(tokens).size}", before)
+        return z
+
+    def step_ms(self) -> list:
+        """Each decode step's milliseconds since the marks were cleared
+        (synchronizes once)."""
+        sync(self.device.type)
+        return [a.elapsed_time(b) if self.device.type == "cuda"
+                else (b - a) * 1e3 for a, b in self.step_marks]
+
+    def clear(self) -> None:
+        self.decodes = self.feature_calls = 0
+        self.launches_by_call, self.step_marks = {}, []
 
 
 KERNELS = (flash_attention, flash_decode, flash_attention_lse,
@@ -1192,45 +1432,64 @@ def expected_launches(cfg, feature_calls: int, decodes: int) -> dict:
             "expert_gemm": gemms * moe * (feature_calls + decodes)}
 
 
+def sync(dev: str) -> None:
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def reset_peak(dev: str) -> None:
+    sync(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib(dev: str):
+    """The peak allocated device memory since ``reset_peak``; None off
+    the card."""
+    return torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if dev == "cuda" else None
+
+
 def serve(cfg, num_paths: int = NUM_PATHS,
-          profile_prompt: int = PROMPT_LEN) -> dict:
+          profile_prompt: int = PROMPT_LEN, *, reroute: bool = True,
+          dev: str = "cuda") -> dict:
     """The serving path at full width: random paths from seeds, a router
-    over path 0's prefix features, generate plain and re-routed; checks
-    tokens, finiteness and every kernel's launch count, then profiles a
+    over path 0's prefix features, generate plain and (with ``reroute``)
+    re-routed; checks
+    tokens, finiteness and (on the card) every kernel's launch count, by
+    decode steps and by feature calls, then (on the card) profiles a
     generate of ``profile_prompt``-token prompts."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(dev)
     t_init = time.perf_counter()
-    paths = [api.init_model(cfg, seed=p, device="cuda")
+    paths = [api.init_model(cfg, seed=p, device=dev)
              for p in range(num_paths)]
-    torch.cuda.synchronize()
+    sync(dev)
     t_init = time.perf_counter() - t_init
     corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
                              seq_len=PROMPT_LEN, seed=0)
     # router from generated weights over the first path's prefix features
     feats = prefix_features(paths[0], cfg, corpus.sample_documents(64,
                                                                    seed=1))
-    gen = torch.Generator(device="cuda").manual_seed(1234)
+    gen = torch.Generator(device=dev).manual_seed(1234)
     router = DiscriminativeRouter(
         w=torch.randn((cfg.d_model, num_paths), generator=gen,
-                      device="cuda"),
-        b=torch.zeros(num_paths, device="cuda"), mu=feats.mean(0),
+                      device=dev),
+        b=torch.zeros(num_paths, device=dev), mu=feats.mean(0),
         sigma=torch.clamp_min(feats.std(0), 1e-6))
     prompts = corpus.sample_documents(REQUESTS, seed=2)
     eng = CheckedEngine(cfg, paths, options=EngineOptions(
         router=router, cache_len=CACHE_LEN))
-    eng.finite = torch.ones((), dtype=torch.bool, device="cuda")
-    eng.decodes = eng.feature_calls = 0
     # warm-up (cuBLAS handles, the kernels' first launches) on short prompts
     eng.generate(prompts[:, :8], max_new=2)
-    torch.cuda.synchronize()
+    sync(dev)
     runs = {"paths_init_s": t_init}
-    for name, every in (("plain", 0), ("reroute", REROUTE_EVERY)):
+    passes = (("plain", 0), ("reroute", REROUTE_EVERY))[:1 + reroute]
+    for name, every in passes:
         reset_counts()
-        eng.decodes = eng.feature_calls = 0
+        eng.clear()
         t0 = time.perf_counter()
         res = eng.generate(prompts, max_new=MAX_NEW, reroute_every=every)
-        torch.cuda.synchronize()
+        sync(dev)
         dt = time.perf_counter() - t0
         launched = counts()
         new = res.tokens[:, PROMPT_LEN:]
@@ -1238,24 +1497,42 @@ def serve(cfg, num_paths: int = NUM_PATHS,
         assert ((new >= 0) & (new < cfg.vocab_size)).all(), new
         want = expected_launches(cfg, eng.feature_calls, eng.decodes)
         got = {k: launched[k] for k in want}
-        assert got == want, (name, got, want)
-        assert all(launched[k] > 0 for k, v in want.items() if v), launched
+        by_call = eng.launches_by_call
+        if dev == "cuda":
+            assert got == want, (name, got, want)
+            assert all(launched[k] > 0 for k, v in want.items() if v), \
+                launched
+            for kind, calls in (("decode", eng.decodes),
+                                ("features", eng.feature_calls)):
+                want = expected_launches(
+                    cfg, *((0, calls) if kind == "decode" else (calls, 0)))
+                got = {k: sum(n[k] for c, n in by_call.items()
+                              if c.startswith(kind)) for k in want}
+                assert got == want, (name, kind, got, want)
         runs[name] = {"paths": res.paths.tolist(), "switches": res.switches,
                       "tokens_per_s": REQUESTS * MAX_NEW / dt,
                       "seconds": dt, "decode_steps": eng.decodes,
+                      "decode_step_ms_median": float(np.median(
+                          eng.step_ms())),
                       "feature_calls": eng.feature_calls,
-                      "launches": launched}
+                      "launches": launched,
+                      # a copy: the profiled generate below adds to the
+                      # engine's own
+                      "launches_by_call": {c: dict(n)
+                                           for c, n in by_call.items()}}
         print(f"[serve {cfg.name}] {name}: routed paths "
               f"{res.paths.tolist()}, switches {res.switches}, "
               f"{REQUESTS * MAX_NEW / dt:.1f} tok/s ({dt:.3f} s), "
-              f"{eng.decodes} decode steps, {eng.feature_calls} feature "
-              f"calls, launches {launched}")
+              f"{eng.decodes} decode steps (median "
+              f"{runs[name]['decode_step_ms_median']:.2f} ms), "
+              f"{eng.feature_calls} feature calls, launches {launched}")
     assert bool(eng.finite), "non-finite logits during generate"
-    runs["device_busy_share"] = device_busy_share(
-        eng, prompts[:, :profile_prompt])
-    runs["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if dev == "cuda":
+        runs["device_busy_share"] = device_busy_share(
+            eng, prompts[:, :profile_prompt])
+    runs["peak_memory_gib"] = peak_gib(dev)
     print(f"[serve {cfg.name}] {num_paths} paths made in {t_init:.1f} s; "
-          f"peak memory {runs['peak_memory_gib']:.2f} GiB")
+          f"peak memory {runs['peak_memory_gib']} GiB")
     del eng, paths, feats, router
     free_memory()
     return runs
@@ -1360,43 +1637,58 @@ class ForcedExperts:
                 for a, b in zip(k, p)]
 
 
+def cut_layers(cfg, depth):
+    """cfg with ``depth`` blocks (an encoder-decoder: ``depth`` encoder
+    and ``depth`` decoder blocks); widths stay.  None: as it is."""
+    if depth is None:
+        return cfg
+    if cfg.encoder is not None:
+        cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder,
+                                                      num_layers=depth))
+    return cfg.replace(num_layers=depth)
+
+
 def prefill_decode_parity(cfg, dtype: str, tol: float, *,
                           prompt_len: int = PROMPT_LEN - MAX_NEW,
-                          batch: int = REQUESTS, depth=None) -> dict:
+                          batch: int = REQUESTS, depth=None,
+                          extras=None, dev: str = "cuda") -> dict:
     """prefill + MAX_NEW decode steps through the kernels vs the same
     calls through the plain path (attn_impl="full": plain attention,
     ``ref.ssd_scan_ref``, einsum experts), same weights, the MoE router
-    teacher-forced; ``depth`` cuts the number of blocks, widths stay."""
+    teacher-forced; ``depth`` cuts the number of blocks, widths stay.
+    ``extras(params, cfg)`` adds entries to every call's batch (an
+    encoder-decoder's ``enc_out`` and ``cross_kv``)."""
     t_start = time.perf_counter()
-    cfg_k = cfg.replace(dtype=dtype)
-    if depth is not None:
-        cfg_k = cfg_k.replace(num_layers=depth)
+    cfg_k = cut_layers(cfg.replace(dtype=dtype), depth)
     cfg_p = cfg_k.replace(attn_impl="full")
-    params = api.init_model(cfg_k, seed=7, device="cuda")
+    params = api.init_model(cfg_k, seed=7, device=dev)
     corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
                              seq_len=prompt_len + MAX_NEW, seed=3)
-    toks = torch.as_tensor(corpus.sample_documents(batch), device="cuda")
+    toks = torch.as_tensor(corpus.sample_documents(batch), device=dev)
     s, cache_len = prompt_len, prompt_len + MAX_NEW
     worst = 0.0
     with torch.inference_mode(), ForcedExperts() as choices:
+        extra = {} if extras is None else extras(params, cfg_k)
         choices.run = "kernels"
-        lg_k, cache_k = api.prefill(params, cfg_k, {"tokens": toks[:, :s]},
-                                    cache_len)
+        lg_k, cache_k = api.prefill(params, cfg_k, {"tokens": toks[:, :s],
+                                                    **extra}, cache_len)
         choices.run = "plain"
-        lg_p, cache_p = api.prefill(params, cfg_p, {"tokens": toks[:, :s]},
-                                    cache_len)
+        lg_p, cache_p = api.prefill(params, cfg_p, {"tokens": toks[:, :s],
+                                                    **extra}, cache_len)
         for t in range(MAX_NEW):
             assert torch.isfinite(lg_k).all()
             worst = max(worst, (lg_k.float() - lg_p.float()).abs().max()
                         .item())
             tok = toks[:, s + t:s + t + 1]
             ci = torch.full((batch,), s + t, dtype=torch.int32,
-                            device="cuda")
+                            device=dev)
             choices.run = "kernels"
-            lg_k, cache_k = api.serve_step(params, cfg_k, {"tokens": tok},
+            lg_k, cache_k = api.serve_step(params, cfg_k,
+                                           {"tokens": tok, **extra},
                                            cache_k, ci)
             choices.run = "plain"
-            lg_p, cache_p = api.serve_step(params, cfg_p, {"tokens": tok},
+            lg_p, cache_p = api.serve_step(params, cfg_p,
+                                           {"tokens": tok, **extra},
                                            cache_p, ci)
         worst = max(worst, (lg_k.float() - lg_p.float()).abs().max().item())
     flips = choices.flips()
@@ -1423,14 +1715,14 @@ class TimedStep:
     """Wraps a trainer's inner step: host time of each call (all workers)
     after synchronizing the device."""
 
-    def __init__(self, fn):
-        self.fn, self.seconds = fn, []
+    def __init__(self, fn, dev: str = "cuda"):
+        self.fn, self.seconds, self.dev = fn, [], dev
 
     def __call__(self, *args):
-        torch.cuda.synchronize()
+        sync(self.dev)
         t0 = time.perf_counter()
         out = self.fn(*args)
-        torch.cuda.synchronize()
+        sync(self.dev)
         self.seconds.append(time.perf_counter() - t0)
         return out
 
@@ -1726,29 +2018,58 @@ def train_family(name: str, dcfg, batch: int, depth) -> dict:
     return out
 
 
-def family_grad_parity(name: str, dtype: str) -> dict:
-    """One inner step's loss gradient at full width, 4 blocks deep,
-    through the kernels and through the plain path, leaf by leaf; the MoE
-    router teacher-forced (a near-tie would flip a token's experts)."""
-    cfg = get_config(name).replace(dtype=dtype, num_layers=FAMILY_GRAD_DEPTH)
-    params = api.init_model(cfg, seed=11, device="cuda")
+def leaf_names(tree, prefix: str = "") -> list:
+    """The "/"-joined key path of every leaf, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in leaf_names(v, f"{prefix}/{k}" if prefix else k)]
+    return [prefix]
+
+
+def family_grad_parity(name: str, dtype: str, depth: int = FAMILY_GRAD_DEPTH,
+                       extras=None, dev: str = "cuda") -> dict:
+    """One inner step's loss gradient at full width, ``depth`` blocks
+    deep (an encoder-decoder: as deep again in its encoder), through the
+    kernels and through the plain path, leaf by leaf; the MoE router
+    teacher-forced (a near-tie would flip a token's experts).
+    ``extras(cfg, gen)`` adds entries to the batch (frames, patch
+    embeddings).  Weights above 16 GiB keep the kernels' gradients on
+    the host while the plain run computes its own (three device copies
+    of jamba's 24 GiB would not fit)."""
+    cfg = cut_layers(get_config(name).replace(dtype=dtype), depth)
+    params = api.init_model(cfg, seed=11, device=dev)
+    offload = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(params)) > 16 * 2 ** 30
     corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
                              seq_len=DOC_LEN, seed=5)
     batch = {"tokens": torch.as_tensor(corpus.sample_documents(2),
-                                       device="cuda")}
+                                       device=dev)}
+    if extras is not None:
+        batch.update(extras(cfg, torch.Generator(device=dev).manual_seed(5)))
     grads = {}
     with ForcedExperts() as choices:
         for impl, run in (("pallas", "kernels"), ("full", "plain")):
             choices.run = run
+            reset_counts()
             loss, _, g = value_and_grad(
                 params, cfg.replace(attn_impl=impl), batch)
-            grads[impl] = (float(loss), tree_leaves(g))
-    errs = [float((a.float() - b.float()).norm() / b.float().norm()
-                  .clamp_min(1e-30))
+            if impl == "pallas":
+                launched = counts()
+            leaves = tree_leaves(g)
+            del g
+            if offload and impl == "pallas":
+                leaves = [x.cpu() for x in leaves]
+            grads[impl] = (float(loss), leaves)
+    errs = [float((a.to(b.device).float() - b.float()).norm()
+                  / b.float().norm().clamp_min(1e-30))
             for a, b in zip(grads["pallas"][1], grads["full"][1])]
+    names = leaf_names(params)
+    worst = sorted(range(len(errs)), key=lambda i: -errs[i])[:3]
     out = {"blocks": cfg.num_layers, "loss_kernels": grads["pallas"][0],
            "loss_plain": grads["full"][0], "leaves": len(errs),
-           "max_rel_err": max(errs), "tol": TRAIN_GRAD_TOL[dtype]}
+           "max_rel_err": max(errs), "tol": TRAIN_GRAD_TOL[dtype],
+           "worst_leaves": {names[i]: errs[i] for i in worst},
+           "offloaded": offload, "launches": launched}
     print(f"[train grads {name}] {dtype}: {out}")
     assert all(float(b.float().norm()) > 0 for b in grads["pallas"][1])
     assert max(errs) <= TRAIN_GRAD_TOL[dtype], out
@@ -2709,8 +3030,6 @@ def deploy_swaps(card: str, root: Path) -> dict:
                                                                    seed=17)
     one = CheckedEngine(cfg, options=EngineOptions(registry=reg,
                                                    cache_len=48))
-    one.finite = torch.ones((), dtype=torch.bool, device=DEV9)
-    one.decodes = one.feature_calls = 0
     r1 = one.generate(prompts, max_new=8)
     assert one.version == v1
     reg.promote(v2)
@@ -2718,8 +3037,6 @@ def deploy_swaps(card: str, root: Path) -> dict:
     assert one.version == v2
     fresh_one = CheckedEngine(cfg, options=EngineOptions(registry=reg,
                                                          cache_len=48))
-    fresh_one.finite = one.finite
-    fresh_one.decodes = fresh_one.feature_calls = 0
     r2f = fresh_one.generate(prompts, max_new=8)
     assert np.array_equal(r2.tokens, r2f.tokens)
     assert bool(one.finite) and bool(fresh_one.finite)
@@ -3312,6 +3629,362 @@ def mesh(card: str, cfg, ds, base, dev: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the other families at full width
+# ---------------------------------------------------------------------------
+# the device of phase 11 (tests/test_torch_chip_phase11.py rehearses it on
+# the CPU at the smoke size; on the card the launch counts and the peak
+# memory are checked and printed too)
+DEV11 = "cuda"
+# (name, paths served, blocks served (None: all), blocks of the f32
+# prefill + decode check): bf16, attn_impl="pallas", phase 3's traffic
+# through the one-shot engine as ``serve`` drives it, without the
+# re-routed pass (the default run must end within the chip tool's 1200 s;
+# with it the run took 1108.5 s on a slow host, PERF.md), then a profiled
+# generate of PROFILE_PROMPT-token prompts.  jamba-v0.1-52b serves one
+# period of its 8-block pattern (its 32 blocks are about 104 GB in bf16,
+# a path of 8 about 24.7 GiB); moonshot-v1-16b-a3b's one path of 48
+# blocks is about 53.3 GiB
+FAMILIES11 = (("dipaco-dense-1b", 1, None, 4), ("qwen3-8b", 2, None, 4),
+              ("pixtral-12b", 1, None, 4),
+              ("moonshot-v1-16b-a3b", 1, None, 4),
+              ("jamba-v0.1-52b", 2, 8, 8))
+# one inner step's gradients, kernels vs plain, (name, blocks, dtypes):
+# jamba at 8 blocks in bf16 only (a 4-block cut holds no attention block,
+# and 8 blocks in f32 do not fit beside their gradients)
+GRAD11 = (("qwen3-8b", 4, ("float32", "bfloat16")),
+          ("pixtral-12b", 4, ("float32", "bfloat16")),
+          ("moonshot-v1-16b-a3b", 4, ("float32", "bfloat16")),
+          ("whisper-base", 4, ("float32", "bfloat16")),
+          ("jamba-v0.1-52b", 8, ("bfloat16",)))
+# pixtral's patch stub: requests through api.prefill with the config's
+# patch positions and this many text tokens; its gradient check's batch
+# carries this many patch positions of its 1024-token documents
+PATCH_REQUESTS, PATCH_TEXT, GRAD_PATCHES = 2, 64, 256
+# whisper-base: requests of the config's 1500 frames, the prompt replayed
+# token by token (the reference's encoder-decoder prefill), then MAX_NEW
+# new tokens
+WHISPER_REQUESTS, WHISPER_PROMPT = 8, 16
+# the paper's dense baseline trained at all 24 blocks: one path, one
+# worker (levels (1,)), phase 4's documents as one shard, its batch, tau
+# and phases
+DENSE_DOCS = DOCS
+
+
+def bf16_tol(blocks: int) -> float:
+    """prefill + decode, kernels vs plain, in bf16: one rounding of each
+    kernel output carried through the blocks (PERF.md section 2)."""
+    return 0.25 if blocks <= 12 else 1.0
+
+
+def patch_prefill(cfg) -> dict:
+    """pixtral's patch stub: PATCH_REQUESTS requests of the config's patch
+    positions (embeddings from a seed) and PATCH_TEXT text tokens through
+    ``api.prefill``, then MAX_NEW ``serve_step``s fed the documents' next
+    tokens, through the kernels and through the plain path; the logits
+    must agree within the bf16 bar and flash decode launch once a block
+    and step (the prefill attends through the dense masked branch)."""
+    n, b = cfg.vision.num_patches, PATCH_REQUESTS
+    s = n + PATCH_TEXT
+    params = api.init_model(cfg, seed=7, device=DEV11)
+    gen = torch.Generator(device=DEV11).manual_seed(8)
+    patches = torch.randn((b, n, cfg.vision.d_patch), generator=gen,
+                          device=DEV11).to(torch.bfloat16)
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
+                             seq_len=s + MAX_NEW, seed=3)
+    toks = torch.as_tensor(corpus.sample_documents(b), device=DEV11)
+    out, logits = {"patches": n, "text": PATCH_TEXT, "requests": b}, {}
+    with torch.inference_mode():
+        for impl in ("pallas", "full"):
+            c = cfg.replace(attn_impl=impl)
+            reset_counts()
+            sync(DEV11)
+            t0 = time.perf_counter()
+            lg, cache = api.prefill(params, c, {"tokens": toks[:, :s],
+                                                "patch_embeds": patches},
+                                    s + MAX_NEW)
+            sync(DEV11)
+            prefill_s = time.perf_counter() - t0
+            steps, step_s = [lg[:, -1].float()], []
+            for t in range(MAX_NEW):
+                t0 = time.perf_counter()
+                lg, cache = api.serve_step(params, c, {
+                    "tokens": toks[:, s + t:s + t + 1]}, cache, s + t)
+                sync(DEV11)
+                step_s.append(time.perf_counter() - t0)
+                steps.append(lg[:, -1].float())
+            logits[impl] = torch.stack(steps)
+            out[impl] = {"prefill_s": prefill_s,
+                         "decode_step_ms_median": float(
+                             np.median(step_s)) * 1e3,
+                         "launches": counts()}
+    assert torch.isfinite(logits["pallas"]).all()
+    out["max_abs_dlogit"] = (logits["pallas"] - logits["full"]).abs().max(
+        ).item()
+    out["tol"] = bf16_tol(cfg.num_layers)
+    print(f"[patches {cfg.name}] {out}", flush=True)
+    assert out["max_abs_dlogit"] <= out["tol"], out
+    if DEV11 == "cuda":
+        got = out["pallas"]["launches"]
+        assert got["flash_decode"] == cfg.num_layers * MAX_NEW, got
+        assert got["flash_attention"] == 0, got
+    del params, cache
+    free_memory()
+    return out
+
+
+def family11(name: str, num_paths: int, depth, f32_depth: int) -> dict:
+    """One decoder family: served at full width (the plain pass, launch
+    counts exact, a profiled generate), then prefill + MAX_NEW
+    decodes through the kernels against the plain path in bf16 at the
+    served depth and in f32 at ``f32_depth`` blocks; pixtral's patch stub
+    besides."""
+    t0 = time.perf_counter()
+    cfg = cut_layers(get_config(name).replace(attn_impl="pallas",
+                                              dtype="bfloat16"), depth)
+    out = {"blocks": cfg.num_layers, "paths": num_paths,
+           "serve": serve(cfg, num_paths, PROFILE_PROMPT, reroute=False,
+                          dev=DEV11)}
+    out["parity"] = {
+        "bfloat16": prefill_decode_parity(cfg, "bfloat16",
+                                          bf16_tol(cfg.num_layers),
+                                          dev=DEV11),
+        "float32": prefill_decode_parity(cfg, "float32", 1e-3,
+                                         depth=f32_depth, dev=DEV11)}
+    if cfg.vision is not None:
+        out["patches"] = patch_prefill(cfg)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[families] {name}: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def whisper_frames(cfg, batch: int, seed: int):
+    enc = cfg.encoder
+    gen = torch.Generator(device=DEV11).manual_seed(seed)
+    return torch.randn((batch, enc.source_len, enc.d_source), generator=gen,
+                       device=DEV11).to(torch_dtype(cfg.dtype))
+
+
+def whisper_extras(params, cfg) -> dict:
+    """The decode batch's encoder side: the encoder output of seeded
+    frames and the cross K/V built from it once."""
+    enc_out = encdec.encode(params, cfg, whisper_frames(cfg, REQUESTS, 4))
+    return {"enc_out": enc_out,
+            "cross_kv": encdec.build_cross_cache(params, cfg, enc_out)}
+
+
+def whisper11() -> dict:
+    """whisper-base through ``models.api``, as the reference runs it:
+    WHISPER_REQUESTS requests of 1500 frames, the encoder once, the
+    cross K/V once, a WHISPER_PROMPT-token prompt replayed through
+    ``api.prefill``, then MAX_NEW greedy tokens; once with ``cross_kv``
+    and once recomputing it from ``enc_out`` every step (fed the first
+    run's tokens): the logits must agree within the bf16 bar, flash
+    decode launch once a decoder block and step.  Then the kernels
+    against the plain path, bf16 at 6 + 6 blocks and f32 at 4 + 4."""
+    t_start = time.perf_counter()
+    cfg = get_config("whisper-base").replace(attn_impl="pallas",
+                                             dtype="bfloat16")
+    b, s = WHISPER_REQUESTS, WHISPER_PROMPT
+    reset_peak(DEV11)
+    t0 = time.perf_counter()
+    params = api.init_model(cfg, seed=0, device=DEV11)
+    sync(DEV11)
+    out = {"init_s": time.perf_counter() - t0, "requests": b, "prompt": s,
+           "frames": cfg.encoder.source_len}
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
+                             seq_len=s, seed=2)
+    prompts = torch.as_tensor(corpus.sample_documents(b), device=DEV11)
+    frames = whisper_frames(cfg, b, 1)
+    logits, greedy = {}, []
+    with torch.inference_mode():
+        for warm in (True, False):
+            sync(DEV11)
+            t0 = time.perf_counter()
+            enc_out = encdec.encode(params, cfg, frames)
+            cross = encdec.build_cross_cache(params, cfg, enc_out)
+            sync(DEV11)
+            out["encode_s"] = time.perf_counter() - t0
+            for run in ("cross_kv", "enc_out"):
+                extra = {"enc_out": enc_out}
+                if run == "cross_kv":
+                    extra["cross_kv"] = cross
+                reset_counts()
+                step_s = []
+                t0 = time.perf_counter()
+                lg, cache = api.prefill(params, cfg, {"tokens": prompts,
+                                                      **extra}, s + MAX_NEW)
+                steps = [lg[:, -1].float()]
+                for t in range(2 if warm else MAX_NEW):
+                    if run == "cross_kv":
+                        greedy.append(torch.argmax(lg[:, -1], dim=-1))
+                    t1 = time.perf_counter()
+                    lg, cache = api.serve_step(params, cfg, {
+                        "tokens": greedy[t][:, None], **extra}, cache, s + t)
+                    sync(DEV11)
+                    step_s.append(time.perf_counter() - t1)
+                    steps.append(lg[:, -1].float())
+                sync(DEV11)
+                dt = time.perf_counter() - t0
+                if warm:
+                    continue
+                logits[run] = torch.stack(steps)
+                out[run] = {"tokens_per_s": b * MAX_NEW / dt, "seconds": dt,
+                            "decode_steps": s + MAX_NEW,
+                            "decode_step_ms_median": float(
+                                np.median(step_s)) * 1e3,
+                            "launches": counts()}
+            if warm:
+                greedy.clear()
+    out["peak_memory_gib"] = peak_gib(DEV11)
+    assert torch.isfinite(logits["cross_kv"]).all()
+    out["max_abs_dlogit_cross_kv"] = (logits["cross_kv"]
+                                      - logits["enc_out"]).abs().max().item()
+    out["tol"] = bf16_tol(cfg.num_layers)
+    print(f"[whisper] {out}", flush=True)
+    assert out["max_abs_dlogit_cross_kv"] <= out["tol"], out
+    if DEV11 == "cuda":
+        for run in ("cross_kv", "enc_out"):
+            got = out[run]["launches"]
+            assert got["flash_decode"] == cfg.num_layers * (s + MAX_NEW), got
+            assert got["flash_attention"] == 0, got
+    del params, cache, enc_out, cross
+    free_memory()
+    out["parity"] = {
+        dt: prefill_decode_parity(cfg, dt, tol, prompt_len=s, depth=depth,
+                                  extras=whisper_extras, dev=DEV11)
+        for dt, tol, depth in (("bfloat16", bf16_tol(cfg.num_layers), None),
+                               ("float32", 1e-3, 4))}
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def grad_extras(name: str):
+    """The gradient check's batch entries besides the tokens: seeded
+    frames for whisper-base, GRAD_PATCHES patch embeddings for pixtral."""
+    if name == "whisper-base":
+        return lambda cfg, gen: {"frames": torch.randn(
+            (2, cfg.encoder.source_len, cfg.encoder.d_source), generator=gen,
+            device=gen.device)}
+    if name == "pixtral-12b":
+        return lambda cfg, gen: {"patch_embeds": torch.randn(
+            (2, GRAD_PATCHES, cfg.vision.d_patch), generator=gen,
+            device=gen.device)}
+    return None
+
+
+def train_dense11() -> dict:
+    """The paper's dense baseline trained at all 24 blocks through
+    ``make_trainer(backend="vector")``: levels (1,) (one path, one
+    worker), DENSE_DOCS synthetic documents of DOC_LEN tokens as one
+    shard, batch TRAIN_BATCH, PHASES phases of TAU, remat on.  The loss
+    must fall; the LSE forward launches twice a block and step (remat),
+    dK/dV and dQ once."""
+    cfg = get_config("dipaco-dense-1b").replace(
+        attn_impl="pallas", dtype="bfloat16", route_prefix_len=32,
+        remat=True)
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
+                             seq_len=DOC_LEN, seed=0)
+    docs = corpus.sample_documents(DENSE_DOCS)
+    ds = shard_documents(docs, np.zeros(len(docs), np.int64), 1)
+    reset_peak(DEV11)
+    base = api.init_model(cfg, seed=0, device=DEV11)
+    tr = make_trainer(cfg, DiPaCoConfig(levels=(1,), inner_steps=TAU), ds,
+                      backend="vector", device=DEV11, base_params=base,
+                      batch_size=TRAIN_BATCH, peak_lr=2e-3, warmup=TAU,
+                      total_steps=PHASES * TAU)
+    del base
+    timer = tr._step_fn = TimedStep(tr._step_fn, DEV11)
+    reset_counts()
+    t0 = time.perf_counter()
+    phases = [tr.run_phase() for _ in range(PHASES)]
+    sync(DEV11)
+    launched = counts()
+    steps = tr.num_workers * TAU * PHASES
+    out = {"blocks": cfg.num_layers, "workers": tr.num_workers,
+           "batch": TRAIN_BATCH, "docs": len(docs),
+           "phases": [{"mean_loss": m.mean_loss, "final_loss": m.final_loss}
+                      for m in phases],
+           "seconds": time.perf_counter() - t0,
+           "inner_step_s_median": float(np.median(timer.seconds)),
+           "inner_step_s_all": timer.seconds,
+           "tokens_per_s": TRAIN_BATCH * DOC_LEN / float(
+               np.median(timer.seconds)),
+           "peak_memory_gib": peak_gib(DEV11), "launches": launched}
+    print(f"[train dipaco-dense-1b] {out}", flush=True)
+    losses = [p["mean_loss"] for p in out["phases"]]
+    assert tr.num_workers == 1 and all(np.isfinite(losses)), out
+    assert losses[1] < losses[0], losses
+    if DEV11 == "cuda":
+        want = {"flash_attention_lse": 2 * cfg.num_layers * steps,
+                "flash_attention_dkv": cfg.num_layers * steps,
+                "flash_attention_dq": cfg.num_layers * steps}
+        assert {k: launched[k] for k in want} == want, (launched, want)
+    del tr
+    free_memory()
+    return out
+
+
+def family_launches(rows, fam) -> None:
+    """Phase 11's launch counts into phase 2's rows of its shapes, each
+    counted where the main path ran that shape: flash decode at G 4 D 128
+    in the GQA families' serving runs' decode steps of the row's batch,
+    the LSE forward, dK/dV and dQ in the dense baseline's training, the
+    expert GEMM in the MoE families' serving runs' decode steps of the
+    row's capacity (dropless: C requests) and in their routing calls,
+    dX and dW in their bf16 gradient checks.  On the card a row whose
+    shape the run never launched fails it."""
+    def served(family, call, kernel):
+        by_call = fam[family]["serve"]["plain"]["launches_by_call"]
+        return sum(n[kernel] for c, n in by_call.items()
+                   if c == call or c.startswith(call + ":"))
+
+    for row in rows:
+        kernel, family = row["name"].split(":")[:2]
+        if kernel == "flash_decode":
+            call = f"decode:{row['shape'][0]}"
+            row["launches_by_family"] = {
+                f: served(f, call, kernel)
+                for f in ("qwen3-8b", "pixtral-12b", "jamba-v0.1-52b")}
+            row["launches"] = sum(row["launches_by_family"].values())
+        elif kernel.startswith("flash_attention"):
+            row["launches"] = fam[family]["train"]["launches"][kernel]
+        elif kernel == "expert_gemm":
+            row["launches"] = served(
+                family, f"decode:{row['shape'][1]}"
+                if row["name"].endswith("decode") else "features", kernel)
+        else:
+            row["launches"] = fam[family]["train_grad_parity"]["bfloat16"][
+                "launches"][kernel]
+        if DEV11 == "cuda":
+            assert row["launches"] > 0, (row["name"], row["shape"])
+
+
+def families11() -> dict:
+    """Phase 11: each decoder family, whisper-base, the dense baseline's
+    training, and the gradient checks; each family's weights freed before
+    the next family's are drawn.  Nothing is written to the disk."""
+    t_start = time.perf_counter()
+    out = {}
+    for name, num_paths, depth, f32_depth in FAMILIES11:
+        out[name] = family11(name, num_paths, depth, f32_depth)
+    out["whisper-base"] = whisper11()
+    t0 = time.perf_counter()
+    out["dipaco-dense-1b"]["train"] = train_dense11()
+    print(f"[families] train dipaco-dense-1b: {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    t0 = time.perf_counter()
+    for name, depth, dtypes in GRAD11:
+        out[name]["train_grad_parity"] = {
+            dt: family_grad_parity(name, dt, depth, grad_extras(name),
+                                   dev=DEV11) for dt in dtypes}
+    print(f"[families] gradient checks: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[families] {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3377,15 +4050,28 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_s = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
+    train_attn = training_attention_timings(gen, TRAIN_BATCH, DOC_LEN, 16,
+                                            64)
+    train_attn[0]["cases"] = check_training_attention(gen)
     kernels = [check_flash_attention(gen), check_flash_decode(gen),
-               *training_attention_timings(gen, TRAIN_BATCH, DOC_LEN, 16,
-                                           64),
-               check_router_assign(gen), check_ssd_scan(gen),
+               *train_attn, check_router_assign(gen), check_ssd_scan(gen),
                check_ssd_scan_bwd(gen), check_expert_gemm(gen),
                *check_expert_gemm_bwd(gen)]
+    family_kernels = [*check_families_attention(gen),
+                      *check_gemm_families(gen)]
     phase_s["kernels"] = time.perf_counter() - t0
-    print(json.dumps({"phase2_kernels": kernels}), flush=True)
+    print(json.dumps({"phase2_kernels": kernels + family_kernels}),
+          flush=True)
     print(f"[phase] kernels: {phase_s['kernels']:.1f} s", flush=True)
+
+    if "--families" in sys.argv[1:]:
+        # phase 11 alone after the kernels (development)
+        fam = families11()
+        family_launches(family_kernels, fam)
+        print(json.dumps({"families": fam}))
+        print(card)
+        print(json.dumps({"kernels": kernels + family_kernels}))
+        return 0
     t0 = time.perf_counter()
 
     cfg = get_config("dipaco-150m").replace(attn_impl="pallas",
@@ -3473,9 +4159,15 @@ def main() -> int:
     print(f"[phase] deploy: {phase_s['deploy']:.1f} s", flush=True)
     t0 = time.perf_counter()
     meshed = mesh(card, cfg.replace(route_prefix_len=32), train_ds, train_base)
-    del train_base
+    del train_base, train_ds
+    free_memory()
     phase_s["mesh"] = time.perf_counter() - t0
     print(f"[phase] mesh: {phase_s['mesh']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    fam = families11()
+    family_launches(family_kernels, fam)
+    phase_s["families"] = time.perf_counter() - t0
+    print(f"[phase] families: {phase_s['families']:.1f} s", flush=True)
     for k in kernels:
         if k["name"] in ("flash_attention_lse", "flash_attention_dkv",
                          "flash_attention_dq"):
@@ -3510,12 +4202,12 @@ def main() -> int:
             k["launches_mesh"] = meshed["one"]["launches"][k["name"]]
     print(f"[phase] seconds: {phase_s}")
 
-    summary = {"kernels": kernels}
+    summary = {"kernels": kernels + family_kernels}
     print(json.dumps({"serve": runs, "prefill_decode_parity": parity,
                       "train": trained, "train_grad_parity": grads,
                       "families": families, "continuous": cont,
                       "service": svc, "deploy": dep, "mesh": meshed,
-                      "phase_seconds": phase_s}))
+                      "families11": fam, "phase_seconds": phase_s}))
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

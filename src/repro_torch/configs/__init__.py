@@ -9,14 +9,14 @@ from __future__ import annotations
 
 import importlib
 
-ALL_CONFIGS = ["dipaco-150m", "mamba2-1.3b", "qwen2-moe-a2.7b"]
+ALL_CONFIGS = ["dipaco-150m", "dipaco-dense-1b", "mamba2-1.3b",
+               "qwen2-moe-a2.7b", "qwen3-8b", "pixtral-12b",
+               "moonshot-v1-16b-a3b", "jamba-v0.1-52b", "whisper-base"]
 
-# declared by the reference package but not yet by the port
-_NOT_PORTED = [
-    "qwen3-moe-235b-a22b", "gemma-2b", "whisper-base", "jamba-v0.1-52b",
-    "pixtral-12b", "qwen3-8b", "moonshot-v1-16b-a3b", "nemotron-4-340b",
-    "dipaco-dense-1b",
-]
+# declared by the reference package but not yet by the port: their head
+# dims (256, 192) and query groups (12, 16) wait for the kernels' wider
+# instantiations
+_NOT_PORTED = ["qwen3-moe-235b-a22b", "gemma-2b", "nemotron-4-340b"]
 
 
 def _module(name: str):

@@ -4,8 +4,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dipaco-150m \
         --paths 4 --requests 8 --max-new 16 [--reroute-every 8]
 
-    # the same on the CPU (plain versions, no kernels); --arch also takes
-    # mamba2-1.3b and qwen2-moe-a2.7b (their smoke configs)
+    # the same on the CPU (plain versions, no kernels); --arch takes every
+    # decoder the port declares (its smoke config): dipaco-dense-1b,
+    # mamba2-1.3b, qwen2-moe-a2.7b, qwen3-8b, pixtral-12b (text only),
+    # moonshot-v1-16b-a3b, jamba-v0.1-52b; whisper-base (an encoder-
+    # decoder) runs through repro_torch.models.api only
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch mamba2-1.3b
@@ -48,8 +51,8 @@ from repro_torch.serving import (ContinuousBatchingEngine, EngineOptions,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="dipaco-150m",
-                    help="a config the port declares (smoke size): "
-                         "dipaco-150m, mamba2-1.3b, qwen2-moe-a2.7b")
+                    help="a decoder config the port declares (smoke "
+                         "size); not whisper-base, an encoder-decoder")
     ap.add_argument("--engine", choices=["oneshot", "continuous"],
                     default="oneshot")
     ap.add_argument("--paths", type=int, default=4)
@@ -94,6 +97,7 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
 
     cfg = get_smoke_config(args.arch).replace(route_prefix_len=8)
+    api.check_decoder(cfg)
     corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
                              seq_len=args.prompt_len, seed=0)
     prompts = corpus.sample_documents(args.requests)

@@ -398,6 +398,7 @@ def main(argv=None) -> dict:
 
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch)).replace(route_prefix_len=8)
+    api.check_decoder(cfg)
     if device.type == "cuda":
         cfg = cfg.replace(attn_impl="pallas")
     levels = tuple(int(x) for x in args.levels.split("x"))

@@ -1,6 +1,6 @@
 """Core neural-net layers in PyTorch: norms, RoPE, attention, MLPs.
 
-The port of ``repro/models/layers.py`` (cross-attention excepted).
+The port of ``repro/models/layers.py``, cross-attention included.
 ``init_*`` take a ``torch.Generator`` and allocate on its device; they
 mirror the reference's shapes and scales, not its random streams.
 ``apply`` functions are plain functions on tensors, except that a
@@ -67,6 +67,8 @@ def apply_rope(x, positions, theta: float):
 # Attention
 # ---------------------------------------------------------------------------
 def init_attention(gen: torch.Generator, cfg: ModelConfig):
+    """Self- or cross-attention weights: both have the same keys and
+    shapes."""
     d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s_in = 1.0 / math.sqrt(d)
     p = {
@@ -234,16 +236,28 @@ def _proj(x, w):
     return (x @ w).reshape(*x.shape[:2], h, k)
 
 
+def attention_q(p, cfg: ModelConfig, x):
+    """The query projection and its qk-norm, no RoPE: x (B,S,d) ->
+    (B,S,H,D)."""
+    q = _proj(x, p["wq"])
+    return rms_norm(p["q_norm"], q, cfg.norm_eps) if cfg.qk_norm else q
+
+
+def attention_kv(p, cfg: ModelConfig, x):
+    """The key and value projections and the key's qk-norm, no RoPE:
+    x (B,S,d) -> k, v (B,S,KH,D)."""
+    k = _proj(x, p["wk"])
+    if cfg.qk_norm:
+        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    return k, _proj(x, p["wv"])
+
+
 def attention_qkv(p, cfg: ModelConfig, x, positions):
     """Projections, qk-norm and RoPE: x (B,S,d) -> q (B,S,H,D), k and v
     (B,S,KH,D).  With path-stacked weights, x (P,S,d) and positions
     (P,S) (the norms' scales then broadcast as (P,1,1,D))."""
-    q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
-    if cfg.qk_norm:
-        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
-        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    q = attention_q(p, cfg, x)
+    k, v = attention_kv(p, cfg, x)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -257,13 +271,22 @@ def attention_out(p, out):
 
 
 def apply_attention(p, cfg: ModelConfig, x, *, positions, causal=True,
-                    window=None, cache=None, cache_index=None, mask=None):
+                    window=None, cache=None, cache_index=None, mask=None,
+                    kv_x=None):
     """Multi-head attention with GQA/MQA, optional qk-norm & RoPE.
 
     cache: optional dict(k=(B,T,KH,D), v=...) for decode/incremental
     prefill, written in place (see ``cached_attention``; ``mask`` (B,)
-    leaves the False rows' cache untouched).  Returns (out, cache).
+    leaves the False rows' cache untouched).  kv_x (B,Sk,d) makes it
+    cross-attention: K and V come from kv_x, with no RoPE, no causal mask
+    and no cache write, through the plain ``full_attention`` (as the
+    reference's).  Returns (out, cache), cache None for cross-attention.
     """
+    if kv_x is not None:
+        k, v = attention_kv(p, cfg, kv_x)
+        out = full_attention(attention_q(p, cfg, x), k, v, causal=False,
+                             window=window)
+        return attention_out(p, out), None
     q, k, v = attention_qkv(p, cfg, x, positions)
     if cache is not None:
         out = cached_attention(cfg, q, k, v, cache, cache_index,

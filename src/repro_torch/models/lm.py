@@ -1,16 +1,19 @@
 """Stacked-block decoder language model: dense, token-MoE, Mamba2 and
-hybrid blocks.
+hybrid blocks, and the VLM patch-embedding stub.
 
 The port of ``repro/models/lm.py``.  Parameters of each pattern
 position are stacked across repeats under ``blocks/pos{i}`` with the
 layer axis first, as in the reference; a Python loop walks the stack
 where the reference uses ``lax.scan``.  Decode caches (KV for attention,
 conv and SSM state for Mamba) are stacked the same way and written in
-place.  The VLM patch stub is not ported yet.
+place.  A VLM config (``cfg.vision``) adds ``patch_proj``, and
+``apply_lm`` / ``prefill`` take precomputed patch embeddings that
+overwrite the first positions of the sequence.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -72,13 +75,16 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig):
     """Parameters on ``gen.device``, with the reference tree's keys,
     shapes and dtypes (random values from ``gen``, not ``jax.random``).
     Each leaf is cast to ``cfg.dtype`` as it is drawn."""
-    if cfg.vision is not None:
-        raise NotImplementedError("the VLM patch stub is not ported yet")
     dtype = torch_dtype(cfg.dtype)
     params = {"embed": cast_tree(init_embedding(gen, cfg), dtype)}
     params["blocks"] = {f"pos{i}": _init_stacked(gen, cfg, spec, dtype)
                         for i, spec in enumerate(cfg.pattern)}
     params["final_norm"] = init_rmsnorm(gen, cfg.d_model).to(dtype)
+    if cfg.vision is not None:
+        d_patch = cfg.vision.d_patch
+        params["patch_proj"] = torch.randn(
+            (d_patch, cfg.d_model), generator=gen, device=gen.device).div_(
+            math.sqrt(d_patch)).to(dtype)
     return params
 
 
@@ -190,12 +196,27 @@ def _scan_blocks(params, cfg: ModelConfig, x, *, positions, window,
     return x, aux
 
 
-def apply_lm(params, cfg: ModelConfig, tokens, *, window=None,
-             return_hidden=False):
+def _embed_inputs(params, cfg: ModelConfig, tokens, patch_embeds=None):
+    """Token embeddings; for a VLM, ``patch_embeds`` (B, P, d_patch) @
+    ``patch_proj`` replace the first P positions (the reference's
+    ``dynamic_update_slice`` at 0, which needs S >= P)."""
+    x = embed_tokens(params["embed"], cfg, tokens)
+    if cfg.vision is None or patch_embeds is None:
+        return x
+    n = patch_embeds.shape[1]
+    if n > x.shape[1]:
+        raise ValueError(f"{n} patch positions do not fit a sequence of "
+                         f"{x.shape[1]} tokens")
+    proj = patch_embeds.to(x.dtype) @ params["patch_proj"].to(x.dtype)
+    return torch.cat([proj, x[:, n:]], dim=1)
+
+
+def apply_lm(params, cfg: ModelConfig, tokens, *, patch_embeds=None,
+             window=None, return_hidden=False):
     """Training / scoring forward.  tokens: (B, S) -> (logits (B, S, V),
     aux) — aux is the summed MoE load-balance loss (0 without MoE)."""
     b, s = tokens.shape
-    x = embed_tokens(params["embed"], cfg, tokens)
+    x = _embed_inputs(params, cfg, tokens, patch_embeds)
     positions = torch.arange(s, device=x.device)[None, :]
     window = window if window is not None else cfg.sliding_window
     x, aux = _scan_blocks(params, cfg, x, positions=positions, window=window)
@@ -360,7 +381,7 @@ def decode_step_paths(stacked, cfg: ModelConfig, tokens, caches,
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
-            window=None):
+            window=None, patch_embeds=None):
     """Single-pass prompt ingestion: forward ``tokens`` once, writing the
     KV decode caches at positions 0..S-1 (the dense masked branch, as in
     the reference) and each Mamba layer's state after the last token
@@ -370,7 +391,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
     if s > cache_len:
         raise ValueError(f"prompt length {s} exceeds cache_len {cache_len}")
     caches = init_decode_cache(cfg, b, cache_len, device=tokens.device)
-    x = embed_tokens(params["embed"], cfg, tokens)
+    x = _embed_inputs(params, cfg, tokens, patch_embeds)
     positions = torch.arange(s, device=x.device)[None, :]
     window = window if window is not None else cfg.sliding_window
     x, _ = _scan_blocks(params, cfg, x, positions=positions, window=window,

@@ -69,7 +69,8 @@ def param_axes(cfg) -> AxisTree:
     """The logical axes of every leaf of ``init_model(cfg)``, as the
     reference's ``init_model`` returns them: layer leaves carry
     ``LAYERS`` first.  Attention and Mamba mixers, dense and MoE MLPs
-    (with the MoE's ``shared`` MLP), as the reference's ``init_*``."""
+    (with the MoE's ``shared`` MLP), the VLM's ``patch_proj`` and the
+    encoder-decoder's tree, as the reference's ``init_*``."""
     attn = {"wq": (EMBED, HEADS, HEAD_DIM), "wk": (EMBED, KV_HEADS, HEAD_DIM),
             "wv": (EMBED, KV_HEADS, HEAD_DIM), "wo": (HEADS, HEAD_DIM, EMBED)}
     if cfg.qk_norm:
@@ -100,7 +101,19 @@ def param_axes(cfg) -> AxisTree:
     embed = {"embedding": (VOCAB, EMBED)}
     if not cfg.tie_embeddings:
         embed["unembed"] = (EMBED, VOCAB)
-    return {"embed": embed, "blocks": blocks, "final_norm": (EMBED,)}
+    if cfg.encoder is not None:
+        enc = {"norm1": (EMBED,), "attn": attn, "norm2": (EMBED,),
+               "mlp": mlp}
+        dec = {"norm1": (EMBED,), "self_attn": attn, "norm_x": (EMBED,),
+               "cross_attn": attn, "norm2": (EMBED,), "mlp": mlp}
+        return {"embed": embed, "src_proj": (None, EMBED),
+                "enc": tree_map(lambda ax: (LAYERS, *ax), enc),
+                "dec": tree_map(lambda ax: (LAYERS, *ax), dec),
+                "enc_norm": (EMBED,), "final_norm": (EMBED,)}
+    axes = {"embed": embed, "blocks": blocks, "final_norm": (EMBED,)}
+    if cfg.vision is not None:
+        axes["patch_proj"] = (None, EMBED)
+    return axes
 
 
 def _leaf_to_torch(x, device: torch.device) -> torch.Tensor:

@@ -406,8 +406,9 @@ class ContinuousBatchingEngine(_EngineBase):
             raise ValueError("stacked decode requires homogeneous path "
                              "architectures; pass stacked=False")
         # pad tokens are causally invisible to attention rows, but a
-        # recurrent SSM state would absorb them
-        can_bucket = all(spec.mixer == "attn" for spec in cfg.pattern)
+        # recurrent SSM state (or enc-dec replay) would absorb them
+        can_bucket = (not api.is_encdec(cfg)
+                      and all(spec.mixer == "attn" for spec in cfg.pattern))
         self.bucketed = can_bucket if opts.bucketed_prefill is None \
             else opts.bucketed_prefill
         if self.bucketed and not can_bucket:

@@ -169,10 +169,17 @@ def test_serve_api_matches_and_decoder_only():
     loss, aux = tapi.forward_loss(tp, tcfg, {"tokens": torch.from_numpy(toks)})
     jloss, _ = japi.forward_loss(jp, jcfg, {"tokens": jnp.asarray(toks)})
     _close(loss, jloss)
+    # the API now dispatches an encoder-decoder config (once refused):
+    # it builds and computes (its parity is in test_torch_encdec.py)
     from repro_torch.models.config import EncoderConfig
-    with pytest.raises(NotImplementedError, match="encoder-decoders"):
-        tapi.init_model(tcfg.replace(encoder=EncoderConfig(1, 2, 8, 4)),
-                        device="cpu")
+    enc = tcfg.replace(encoder=EncoderConfig(1, 2, 8, 4))
+    params = tapi.init_model(enc, device="cpu")
+    assert {"src_proj", "enc", "dec"} <= set(params)
+    frames = torch.randn(2, 4, 8)
+    logits, _ = tapi.forward_logits(params, enc, {
+        "tokens": torch.from_numpy(toks), "frames": frames})
+    assert logits.shape == (2, 10, enc.vocab_size)
+    assert torch.isfinite(logits).all()
 
 
 def test_multi_token_ring_wrap_raises():
@@ -196,9 +203,11 @@ def test_multi_token_ring_wrap_raises():
 
 
 def test_moe_and_mamba_blocks_not_ported():
-    """MoE and Mamba blocks are ported now (their parity tests are in
-    test_torch_moe_ssm*.py); what stays unported are the encoder-decoder
-    and the VLM patch stub, and both still raise."""
+    """Every block and model kind the reference builds is ported now
+    (the name is from when they were refused): MoE and Mamba blocks
+    (parity in test_torch_moe_ssm*.py), the encoder-decoder
+    (test_torch_encdec.py) and the VLM patch stub (test_torch_families.py)
+    build and compute."""
     from repro_torch.models.config import (BlockSpec, EncoderConfig,
                                            VisionStubConfig)
     from repro_torch.configs import get_smoke_config
@@ -211,11 +220,25 @@ def test_moe_and_mamba_blocks_not_ported():
         assert set(params["blocks"]["pos0"]) == {"norm1", "mixer", "norm2",
                                                  "mlp"}
     enc = tcfg.replace(encoder=EncoderConfig(1, 2, 8, 4))
-    for call in (lambda: tapi.init_model(enc, device="cpu"),
-                 lambda: tapi.init_serve_cache(enc, 1, 8, device="cpu"),
-                 lambda: tapi.forward_logits({}, enc, {"tokens": None})):
-        with pytest.raises(NotImplementedError, match="encoder-decoders"):
-            call()
-    with pytest.raises(NotImplementedError, match="VLM patch stub"):
-        tapi.init_model(tcfg.replace(vision=VisionStubConfig(4, 16)),
-                        device="cpu")
+    params = tapi.init_model(enc, device="cpu")
+    cache = tapi.init_serve_cache(enc, 1, 8, device="cpu")
+    assert cache["k"].shape == (enc.num_layers, 1, 8, enc.num_kv_heads,
+                                enc.head_dim)
+    enc_out = torch.randn(1, 4, enc.d_model)
+    logits, cache = tapi.serve_step(params, enc, {
+        "tokens": torch.zeros((1, 1), dtype=torch.int32),
+        "enc_out": enc_out}, cache, 0)
+    assert logits.shape == (1, 1, enc.vocab_size)
+    assert torch.isfinite(logits).all() and cache["k"][:, :, 0].any()
+    vlm = tcfg.replace(vision=VisionStubConfig(4, 16))
+    params = tapi.init_model(vlm, device="cpu")
+    assert params["patch_proj"].shape == (16, vlm.d_model)
+    toks = torch.zeros((2, 6), dtype=torch.int32)
+    patches = torch.randn(2, 4, 16)
+    with_patches, _ = tapi.forward_logits(params, vlm, {
+        "tokens": toks, "patch_embeds": patches})
+    text_only, _ = tapi.forward_logits(params, vlm, {"tokens": toks})
+    assert torch.isfinite(with_patches).all()
+    # the patches replace the first 4 positions; the causal rest sees them
+    assert not torch.equal(with_patches[:, :4], text_only[:, :4])
+    assert not torch.equal(with_patches[:, 4:], text_only[:, 4:])
