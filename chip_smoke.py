@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    machine code of the sources with a tensor-core path (``moe_gmm``,
    ``flash_attention``, ``flash_attention_bwd``, ``router_assign``,
    ``ssd_scan``, ``ssd_scan_bwd``) must hold wgmma (HGMMA) and TMA loads
-   (UTMALDG).
+   (UTMALDG).  Prints flash decode's dynamic shared memory a block for
+   every head dim, cache dtype and head-group size, each within the
+   232,448 bytes a block may take.
 2. Kernels against their plain PyTorch versions on the card, in bf16 and
    f32, at the main paths' shapes and at others: flash attention and
    flash decode (serving), the forward that writes the LSE rows, the
@@ -42,10 +44,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    training kernel must launch as often as the path needs it.  One inner
    step's gradients through the kernels are compared with the plain
    attention's, leaf by leaf, in f32 and bf16.
-5. Serving the SSM and token-MoE families at full width and depth, in
-   bf16 with ``attn_impl="pallas"``: ``mamba2-1.3b`` (48 Mamba2 blocks,
-   4 paths) and ``qwen2-moe-a2.7b`` (24 blocks of attention and 60
-   experts top-4 plus 4 shared, 2 paths of about 28 GB), each as phase 3
+5. Serving the SSM and token-MoE families at full width and half their
+   depth, in bf16 with ``attn_impl="pallas"``: ``mamba2-1.3b`` (24 of
+   its 48 Mamba2 blocks, 4 paths) and ``qwen2-moe-a2.7b`` (12 of its 24
+   blocks of attention and 60 experts top-4 plus 4 shared, 2 paths of
+   about 14 GB), each as phase 3
    serves: a discriminative router over path 0's prefix features, 8
    prompts of 64 tokens, 16 new tokens, plain and re-routed.  Every
    decode step must be finite, and every kernel of the path must launch
@@ -55,10 +58,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 6. Training the SSM and token-MoE families at full width, in bf16 with
    ``attn_impl="pallas"`` and remat ``"full"``: ``make_trainer(backend=
    "vector")`` on synthetic documents of 1024 tokens, 2 phases of 2 inner
-   steps, for ``mamba2-1.3b`` as a 2-path flat DiPaCo at all 48 blocks
-   (batch 4 a worker; the inner and outer steps update the trainer's
-   state in place; the peak allocated memory is printed beside the 24-
-   block run's under the functional step, and running out of memory
+   steps, for ``mamba2-1.3b`` as a 2-path flat DiPaCo at 24 of its 48
+   blocks (batch 4 a worker; the inner and outer steps update the
+   trainer's state in place; the peak allocated memory is printed beside
+   the 24-block run's under the functional step, and running out of memory
    prints what holds it and fails) and ``qwen2-moe-a2.7b`` cut to 2 of its
    24 blocks, one worker (batch 4).  Each phase's mean loss must be
    finite and fall;
@@ -172,9 +175,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 11. The other families at full width, in bf16 with ``attn_impl=
    "pallas"``, each family's weights freed before the next's are drawn;
    nothing written to the disk.  ``dipaco-dense-1b`` (24 blocks, 1
-   path), ``qwen3-8b`` (36, 2 paths), ``pixtral-12b`` (40, 1 path, text
-   through the engine), ``moonshot-v1-16b-a3b`` (48 blocks of 64 experts
-   top-6 plus 2 shared, 1 path of about 53 GiB) and ``jamba-v0.1-52b``
+   path), ``qwen3-8b`` (18 of 36, 2 paths), ``pixtral-12b`` (20 of 40,
+   1 path, text through the engine), ``moonshot-v1-16b-a3b`` (24 of its
+   48 blocks of 64 experts top-6 plus 2 shared, 1 path of about 27 GiB)
+   and ``jamba-v0.1-52b``
    (8 of its 32 blocks: one period of its pattern, 2 paths) serve phase
    3's traffic through the one-shot engine (the plain pass, then a
    profiled generate of 16-token prompts), every kernel launching as its
@@ -196,7 +200,20 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    bf16.  Phase 2 checks and times the kernels at these families'
    shapes beforehand: the expert GEMM and its dX / dW at moonshot's and
    jamba's capacities, flash decode at B8 H32 KH8 D128, the LSE forward
-   and its backward at B8 S1024 H16 D128.
+   and its backward at B8 S1024 H16 D128.  Then ``gemma-2b`` (all 18
+   blocks, 2 paths; D 256, 8 query heads over 1 KV head),
+   ``nemotron-4-340b`` (4 of its 96 blocks, 1 path of about 46.5 GB; D
+   192, 96 heads over 8) and ``qwen3-moe-235b-a22b`` (8 of its 94
+   blocks of 128 experts top-8, 1 path of about 42.3 GB; 64 heads over
+   4) serve the same traffic, with prefill + decode against plain in
+   bf16 at the served depth and in f32 at 4, 1 and 2 blocks.  They are
+   not trained: the attention backward refuses head_dim 192 and 256.
+   Phase 2 checks and times their shapes too: flash decode at their
+   query groups over phase 3's cache at the batch each path sees (B8,
+   and gemma's 3 and 5) and over 2048 slots, the forward at their
+   routing calls and at B2 S2048, the LSE forward at B8 S1024 H8 KH1
+   D256 (and the backward's refusal), and the expert GEMM at E128 d4096
+   f1536.
 
 ``python3 chip_smoke.py --service-probe`` runs phase 4's pipeline and a
 probe of the stale service's loss (the vector trainer and the service
@@ -257,7 +274,8 @@ from repro_torch.data import SyntheticCorpus, shard_documents  # noqa: E402
 from repro_torch.deploy import (CanaryGate, DeploymentRegistry,  # noqa: E402
                                 Publisher)
 from repro_torch.infra import ShardedOuterExecutors, ckpt_db  # noqa: E402
-from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
@@ -317,23 +335,27 @@ REROUTE_TRAIN = 64
 # ||a - b|| / ||b|| per leaf after 12 blocks: f32 differs by summation
 # order; bf16 by the rounding of every activation on both paths
 TRAIN_GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
-# the SSM and token-MoE families served at full width and depth: (name,
-# paths, {dtype: max |dlogit| tolerance of prefill + decode}, that
-# check's prompt tokens and batch, and the blocks of its f32 run).
-# f32: summation order only: the GEMM's d sums (1e-3, as dipaco-150m's
-# check), and the SSD's segment differences, about 3e-5 of each block's
-# scan output (see TOL) carried through 48 blocks onto logits of a few
-# units (1e-2).  bf16: one rounding of each kernel output, carried
-# through 48 blocks of mamba2-1.3b or 24 of qwen2-moe-a2.7b (1.0, as
-# against logits of about 4 to 5).  The MoE check is teacher-forced
+# the SSM and token-MoE families served at full width: (name, paths,
+# blocks served, {dtype: max |dlogit| tolerance of prefill + decode},
+# that check's prompt tokens and batch, and the blocks of its f32 run, or
+# None for the blocks served).  Both are cut to half their depth (24 of
+# mamba2-1.3b's 48, 12 of qwen2-moe-a2.7b's 24), so that the default run
+# ends within 1000 s on a slow host (PERF.md section 4).  f32: summation
+# order only: the GEMM's d sums (1e-3, as dipaco-150m's check), and the
+# SSD's segment differences, about 3e-5 of each block's scan output (see
+# TOL) carried through up to 48 blocks onto logits of a few units
+# (1e-2).  bf16: one rounding of each kernel output, carried through up
+# to 48 blocks of mamba2-1.3b or 24 of qwen2-moe-a2.7b (1.0, as against
+# logits of about 4 to 5).  The MoE check is teacher-forced
 # (ForcedExperts): a near-tie among 60 router probabilities would flip a
 # token's top-4 set between the runs and, through it, every later block
 # and position.  mamba2-1.3b prefills 2 prompts of 2048 tokens (8
 # chunks); qwen2-moe-a2.7b 8 of 48, its f32 weights cut to 8 blocks (56
 # GB at 24), widths unchanged.
 FAMILIES = (
-    ("mamba2-1.3b", 4, {"float32": 1e-2, "bfloat16": 1.0}, 2048, 2, None),
-    ("qwen2-moe-a2.7b", 2, {"float32": 1e-3, "bfloat16": 1.0},
+    ("mamba2-1.3b", 4, 24, {"float32": 1e-2, "bfloat16": 1.0}, 2048, 2,
+     None),
+    ("qwen2-moe-a2.7b", 2, 12, {"float32": 1e-3, "bfloat16": 1.0},
      PROMPT_LEN - MAX_NEW, REQUESTS, 8),
 )
 
@@ -404,6 +426,18 @@ def tensor_core_sass() -> None:
             (name, found)
 
 
+def decode_smem() -> None:
+    """flash decode's dynamic shared memory a block, for every head dim,
+    cache dtype and head-group size: each must fit the 227 KB (232,448
+    bytes) a block of the H100 may take."""
+    sizes = {f"D{d} {str(t)[6:]} G{g}": decode_attention.smem_bytes(d, t, g)
+             for d in decode_attention.HEAD_DIMS
+             for t in (torch.float32, torch.bfloat16, torch.int8)
+             for g in range(1, decode_attention.MAX_GROUP + 1)}
+    print(f"[smem decode_attention] {sizes}")
+    assert max(sizes.values()) <= 232448, sizes
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -458,24 +492,30 @@ def check_flash_attention(gen) -> dict:
         "long": fa_timings(gen, 2, 2048, 16, 64), "cases": rows}
 
 
-def fa_timings(gen, b, s, h, d) -> dict:
+def fa_timings(gen, b, s, h, d, kh=None) -> dict:
+    """bf16, causal: eager and from a CUDA graph, beside SDPA (with
+    ``enable_gqa`` where there are fewer KV heads than query heads)."""
     dtype = torch.bfloat16
-    q, k, v = (randn(gen, b, s, h, d, dtype=dtype) for _ in range(3))
+    kh = kh or h
+    q = randn(gen, b, s, h, d, dtype=dtype)
+    k, v = (randn(gen, b, s, kh, d, dtype=dtype) for _ in range(2))
     err = (flash_attention(q, k, v).float()
            - ref.flash_attention_ref(q, k, v).float()).abs().max().item()
+    assert err <= TOL[dtype], (b, s, h, kh, d, err)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    gqa = {"enable_gqa": True} if kh != h else {}
     bound_ms, bound_by = bound(nbytes(q, k, v, q),
                                4 * d * h * b * attention_pairs(s, True, None),
                                dtype)
     return {
-        "shape": [b, s, h, h, d], "dtype": "bf16",
+        "shape": [b, s, h, kh, d], "dtype": "bf16",
         "max_abs_err": err, "max_err": err,
         "ms": time_ms(lambda: flash_attention(q, k, v)),
         "graph_ms": graph_ms(lambda: flash_attention(q, k, v)),
         "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v)),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))}
+            qt, kt, vt, is_causal=True, **gqa))}
 
 
 def quantize(x):
@@ -1208,7 +1248,11 @@ GEMM_FAMILIES = (
     ("moonshot-v1-16b-a3b", 64, 2048, 1408,
      {"decode": 8, "routing": 30, "prefill": 45, "train": 240}),
     ("jamba-v0.1-52b", 16, 4096, 14336,
-     {"decode": 4, "routing": 40, "prefill": 60, "train": 320}))
+     {"decode": 4, "routing": 40, "prefill": 60, "train": 320}),
+    # served only: int(256 * 8 * 1.25 / 128) = 20 at routing, 30 at the
+    # prefill check's 384 tokens
+    ("qwen3-moe-235b-a22b", 128, 4096, 1536,
+     {"decode": 8, "routing": 20, "prefill": 30}))
 GEMM_TIMED = ("decode", "routing")
 
 
@@ -1290,6 +1334,34 @@ def check_gemm_families(gen) -> list:
     return rows
 
 
+def decode_cases(gen, b, h, kh, d, label: str) -> list:
+    """flash decode against its plain version over phase 3's 80-token
+    cache at the last step and mid-prompt, bf16 and f32, int8 or not."""
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for int8 in (False, True):
+            for ci in ([CACHE_LEN - 1] * b, list(range(0, 80, 10))[:b]):
+                q = randn(gen, b, h, d, dtype=dtype)
+                kc, vc = (randn(gen, b, CACHE_LEN, kh, d, dtype=dtype)
+                          for _ in range(2))
+                cit = torch.tensor(ci, dtype=torch.int32, device="cuda")
+                ks = vs = None
+                if int8:
+                    (kc, ks), (vc, vs) = quantize(kc), quantize(vc)
+                out = flash_decode(q, kc, vc, cit, k_scale=ks, v_scale=vs)
+                torch.cuda.synchronize()
+                plain = ref.flash_decode_ref(q, kc, vc, cit, k_scale=ks,
+                                             v_scale=vs)
+                err = (out.float() - plain.float()).abs().max().item()
+                case = {"shape": [b, h, kh, d, CACHE_LEN],
+                        "dtype": str(dtype), "int8": int8,
+                        "max_abs_err": err, "tol": TOL[dtype]}
+                print(f"[flash_decode {label}] {case}")
+                cases.append(case)
+                assert err <= TOL[dtype], case
+    return cases
+
+
 def check_families_attention(gen) -> list:
     """flash decode at the GQA families' decode (H32 KH8 D128 over phase
     3's 80-token cache: B8, the requests of a family served on one path,
@@ -1299,29 +1371,7 @@ def check_families_attention(gen) -> list:
     baseline's training shape (B8 S1024 H16 D128)."""
     fds = []
     for b in (REQUESTS, REQUESTS // 2):
-        rows = []
-        for dtype in (torch.bfloat16, torch.float32):
-            for int8 in (False, True):
-                for ci in ([CACHE_LEN - 1] * b, list(range(0, 80, 10))[:b]):
-                    q = randn(gen, b, 32, 128, dtype=dtype)
-                    kc, vc = (randn(gen, b, CACHE_LEN, 8, 128, dtype=dtype)
-                              for _ in range(2))
-                    cit = torch.tensor(ci, dtype=torch.int32, device="cuda")
-                    ks = vs = None
-                    if int8:
-                        (kc, ks), (vc, vs) = quantize(kc), quantize(vc)
-                    out = flash_decode(q, kc, vc, cit, k_scale=ks,
-                                       v_scale=vs)
-                    torch.cuda.synchronize()
-                    plain = ref.flash_decode_ref(q, kc, vc, cit, k_scale=ks,
-                                                 v_scale=vs)
-                    err = (out.float() - plain.float()).abs().max().item()
-                    row = {"shape": [b, 32, 8, 128, CACHE_LEN],
-                           "dtype": str(dtype), "int8": int8,
-                           "max_abs_err": err, "tol": TOL[dtype]}
-                    print(f"[flash_decode G4] {row}")
-                    rows.append(row)
-                    assert err <= TOL[dtype], row
+        rows = decode_cases(gen, b, 32, 8, 128, "G4")
         fds.append({
             "name": f"flash_decode:gqa-d128:b{b}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1339,6 +1389,143 @@ def check_families_attention(gen) -> list:
                                              16, 128, True, None,
                                              torch.float32)]
     return [*fds, *train]
+
+
+# (family, H, KH, D, the decode batches its paths see in phase 11): the
+# published heads of the last three families.  gemma-2b's router splits
+# its 8 requests over its 2 paths; the others serve all 8 on one path.
+# ``family_launches`` fails the run if a row's batch never decoded there.
+WIDE_HEADS = (("gemma-2b", 8, 1, 256, (3, 5)),
+              ("nemotron-4-340b", 96, 8, 192, (REQUESTS,)),
+              ("qwen3-moe-235b-a22b", 64, 4, 128, (REQUESTS,)))
+
+
+def check_wide_decode(gen) -> list:
+    """flash decode at the last three families' query groups and head
+    dims (G 8 D 256, G 12 D 192, G 16 D 128) over phase 3's 80-token
+    cache, at the last step and mid-prompt, bf16 and f32, int8 or not,
+    at B8 and at each batch a path sees; timed (bf16, eager and from a
+    graph, beside SDPA ``enable_gqa``) at those batches, at B8 and over
+    a wrapped 2048-token ring at B8."""
+    rng = np.random.default_rng(11)
+    rows = []
+    for family, h, kh, d, batches in WIDE_HEADS:
+        cases = [case for b in sorted({REQUESTS, *batches})
+                 for case in decode_cases(gen, b, h, kh, d, family)]
+        for i, b in enumerate(batches):
+            row = {"name": f"flash_decode:{family}:b{b}", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/"
+                             "decode_attention.cu",
+                   "replaces": "src/repro/kernels/decode_attention.py:103",
+                   "launches": None,
+                   **fd_timings(gen, b, h, d, CACHE_LEN,
+                                [CACHE_LEN - 1] * b, kh=kh),
+                   "library_call": "F.scaled_dot_product_attention("
+                                   "attn_mask=ring mask, enable_gqa=True)"}
+            if i == 0:
+                if REQUESTS not in batches:
+                    row["b8"] = fd_timings(gen, REQUESTS, h, d, CACHE_LEN,
+                                           [CACHE_LEN - 1] * REQUESTS, kh=kh)
+                row["long"] = fd_timings(
+                    gen, REQUESTS, h, d, 2048,
+                    rng.integers(0, 3 * 2048, REQUESTS).tolist(), kh=kh)
+                row["cases"] = cases
+            print(f"[flash_decode {family}] timed {row}", flush=True)
+            rows.append(row)
+    return rows
+
+
+def check_wide_attention(gen) -> list:
+    """The forward (both dtypes) at the last three families' routing
+    calls (B8 S32: gemma H8 KH1 D256, nemotron H96 KH8 D192, qwen3-moe
+    H64 KH4 D128), at B2 S2048 for the two new head dims, and at ragged,
+    windowed edges of D 192 and 256; timed in bf16 at the routing call
+    and (D 192 / 256) at B2 S2048, beside SDPA causal ``enable_gqa``."""
+    rows = []
+    for family, h, kh, d, _ in WIDE_HEADS:
+        shapes = [(8, 32, h, kh, d, None)]
+        if d > 128:
+            shapes += [(2, 2048, h, kh, d, None), (1, 333, h, kh, d, 100),
+                       (2, 65, h, kh, d, 7)]
+        cases = []
+        for dtype in (torch.bfloat16, torch.float32):
+            for b, s, hh, kk, dd, w in shapes:
+                q = randn(gen, b, s, hh, dd, dtype=dtype)
+                k, v = (randn(gen, b, s, kk, dd, dtype=dtype)
+                        for _ in range(2))
+                out = flash_attention(q, k, v, causal=True, window=w)
+                torch.cuda.synchronize()
+                plain = ref.flash_attention_ref(q, k, v, causal=True,
+                                                window=w)
+                err = (out.float() - plain.float()).abs().max().item()
+                case = {"shape": [b, s, hh, kk, dd], "window": w,
+                        "dtype": str(dtype), "max_abs_err": err,
+                        "tol": TOL[dtype]}
+                print(f"[flash_attention {family}] {case}")
+                cases.append(case)
+                assert err <= TOL[dtype], case
+                del q, k, v, out, plain
+        row = {"name": f"flash_attention:{family}:routing", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention.py:81",
+               "launches": None, **fa_timings(gen, 8, 32, h, d, kh=kh),
+               "library_call": "F.scaled_dot_product_attention("
+                               "is_causal=True, enable_gqa=True)",
+               "cases": cases}
+        if d > 128:
+            row["long"] = fa_timings(gen, 2, 2048, h, d, kh=kh)
+        print(f"[flash_attention {family}] timed {row}", flush=True)
+        rows.append(row)
+    return rows
+
+
+def check_wide_lse(gen) -> dict:
+    """The LSE forward at gemma-2b's heads (B8 S1024 H8 KH1 D256) against
+    its plain version in bf16 and f32, timed in bf16 (no path of this
+    run launches it there: the backward refuses D 192 and 256), and that
+    refusal: the training Function raises ValueError before any launch."""
+    b, s, h, kh, d = 8, 1024, 8, 1, 256
+    out = {"shape": [b, s, h, kh, d], "cases": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = randn(gen, b, s, h, d, dtype=dtype)
+        k, v = (randn(gen, b, s, kh, d, dtype=dtype) for _ in range(2))
+        o, lse = flash_attention_lse(q, k, v)
+        torch.cuda.synchronize()
+        po, plse = ref.fwd_with_lse_ref(q, k, v)
+        case = {"dtype": str(dtype),
+                "o_max_abs_err": (o.float() - po.float()).abs().max().item(),
+                "lse_max_abs_err": (lse - plse).abs().max().item(),
+                "tol": {"o": TOL[dtype], "lse": 1e-4}}
+        print(f"[flash_attention_lse D256] {case}")
+        out["cases"].append(case)
+        assert case["o_max_abs_err"] <= TOL[dtype], case
+        assert case["lse_max_abs_err"] <= 1e-4, case
+        if dtype == torch.bfloat16:
+            bound_ms, bound_by = bound(
+                nbytes(q, k, v, o, lse),
+                4 * d * h * b * attention_pairs(s, True, None), dtype)
+            out.update({
+                "ms": time_ms(lambda: flash_attention_lse(q, k, v), 20),
+                "plain_ms": time_ms(lambda: ref.fwd_with_lse_ref(q, k, v),
+                                    5),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None})
+        del q, k, v, o, lse, po, plse
+    refused = {}
+    for dd in (192, 256):
+        q = randn(gen, 1, 64, 8, dd, dtype=torch.bfloat16).requires_grad_()
+        k, v = (randn(gen, 1, 64, 1, dd, dtype=torch.bfloat16)
+                for _ in range(2))
+        before = flash_attention_lse.launches
+        try:
+            ops.flash_attention(q, k, v, causal=True)
+        except ValueError as e:
+            refused[dd] = str(e)
+        assert dd in refused and "queue 2 B" in refused[dd], (dd, refused)
+        assert flash_attention_lse.launches == before
+    out["backward_refuses"] = refused
+    print(f"[flash_attention_lse D256] {out}", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1922,13 +2109,14 @@ def train_grad_parity(cfg, dtype: str) -> dict:
 # Phase 6: training the SSM and token-MoE families
 # ---------------------------------------------------------------------------
 # (name, DiPaCo config, batch a worker, blocks or None for full depth):
-# mamba2-1.3b as a 2-path flat DiPaCo at all 48 blocks: the trainer keeps
-# two workers' bf16 weights and f32 AdamW moments, two paths' f32 weights
-# and their outer momentum (about 45 GiB), and its inner and outer steps
-# update them in place, in slabs of 2^24 elements; qwen2-moe-a2.7b cut
-# to 2 of 24 blocks (full depth needs about 170 GB for its weights and
-# AdamW moments alone), one worker
-FAMILY_TRAIN = (("mamba2-1.3b", flat_moe_config(2, inner_steps=2), 4, None),
+# mamba2-1.3b as a 2-path flat DiPaCo at 24 of its 48 blocks (all 48 fit:
+# the trainer keeps two workers' bf16 weights and f32 AdamW moments, two
+# paths' f32 weights and their outer momentum, about 45 GiB, and its
+# inner and outer steps update them in place, in slabs of 2^24 elements;
+# cut to end the default run within 1000 s on a slow host, PERF.md
+# section 4); qwen2-moe-a2.7b cut to 2 of 24 blocks (full depth needs
+# about 170 GB for its weights and AdamW moments alone), one worker
+FAMILY_TRAIN = (("mamba2-1.3b", flat_moe_config(2, inner_steps=2), 4, 24),
                 ("qwen2-moe-a2.7b", diloco_config(1, inner_steps=2), 4, 2))
 FAMILY_TAU, FAMILY_PHASES, FAMILY_GRAD_DEPTH = 2, 2, 4
 # mamba2-1.3b's peak allocated memory at 24 blocks under the functional
@@ -3644,11 +3832,23 @@ DEV11 = "cuda"
 # generate of PROFILE_PROMPT-token prompts.  jamba-v0.1-52b serves one
 # period of its 8-block pattern (its 32 blocks are about 104 GB in bf16,
 # a path of 8 about 24.7 GiB); moonshot-v1-16b-a3b's one path of 48
-# blocks is about 53.3 GiB
-FAMILIES11 = (("dipaco-dense-1b", 1, None, 4), ("qwen3-8b", 2, None, 4),
-              ("pixtral-12b", 1, None, 4),
-              ("moonshot-v1-16b-a3b", 1, None, 4),
-              ("jamba-v0.1-52b", 2, 8, 8))
+# blocks is about 53.3 GiB.  qwen3-8b, pixtral-12b and moonshot serve
+# half their blocks (18 of 36, 20 of 40, 24 of 48), so that the default
+# run ends within 1000 s on a slow host (PERF.md section 4).  gemma-2b: 18 blocks of 110.1 M parameters
+# and a tied 256000 x 2048 embedding, about 5.0 GB a path.
+# nemotron-4-340b: 4 of its 96 blocks (3.45 G parameters, 6.9 GB each)
+# beside its two untied 256000 x 18432 tables (18.9 GB), about 46.5 GB;
+# 8 blocks would be 74 GB beside the f32 layer drawn at init (13.8 GB);
+# its f32 check at 1 block is about 52 GB.  qwen3-moe-235b-a22b: 8 of its
+# 94 blocks (4.98 GB each, almost all its 128 experts) and 2.5 GB of
+# tables, about 42.3 GB; its f32 check at 2 blocks about 25 GB
+FAMILIES11 = (("dipaco-dense-1b", 1, None, 4), ("qwen3-8b", 2, 18, 4),
+              ("pixtral-12b", 1, 20, 4),
+              ("moonshot-v1-16b-a3b", 1, 24, 4),
+              ("jamba-v0.1-52b", 2, 8, 8),
+              ("gemma-2b", 2, None, 4),
+              ("nemotron-4-340b", 1, 4, 1),
+              ("qwen3-moe-235b-a22b", 1, 8, 2))
 # one inner step's gradients, kernels vs plain, (name, blocks, dtypes):
 # jamba at 8 blocks in bf16 only (a 4-block cut holds no attention block,
 # and 8 blocks in f32 do not fit beside their gradients)
@@ -3929,6 +4129,8 @@ def family_launches(rows, fam) -> None:
     """Phase 11's launch counts into phase 2's rows of its shapes, each
     counted where the main path ran that shape: flash decode at G 4 D 128
     in the GQA families' serving runs' decode steps of the row's batch,
+    flash decode at a last three family's heads in its own decode steps
+    of the row's batch and flash attention in its routing calls,
     the LSE forward, dK/dV and dQ in the dense baseline's training, the
     expert GEMM in the MoE families' serving runs' decode steps of the
     row's capacity (dropless: C requests) and in their routing calls,
@@ -3941,12 +4143,17 @@ def family_launches(rows, fam) -> None:
 
     for row in rows:
         kernel, family = row["name"].split(":")[:2]
-        if kernel == "flash_decode":
+        if kernel == "flash_decode" and family in fam:
+            row["launches"] = served(family, f"decode:{row['shape'][0]}",
+                                     kernel)
+        elif kernel == "flash_decode":
             call = f"decode:{row['shape'][0]}"
             row["launches_by_family"] = {
                 f: served(f, call, kernel)
                 for f in ("qwen3-8b", "pixtral-12b", "jamba-v0.1-52b")}
             row["launches"] = sum(row["launches_by_family"].values())
+        elif kernel == "flash_attention":
+            row["launches"] = served(family, "features", kernel)
         elif kernel.startswith("flash_attention"):
             row["launches"] = fam[family]["train"]["launches"][kernel]
         elif kernel == "expert_gemm":
@@ -4008,6 +4215,7 @@ def main() -> int:
                                        "spill")):
                 print(f"[ptxas {name}] {line.strip()}")
     tensor_core_sass()
+    decode_smem()
 
     if "--deploy" in sys.argv[1:]:
         # phase 9 alone, on phase 4's data and weights (development)
@@ -4057,8 +4265,10 @@ def main() -> int:
                *train_attn, check_router_assign(gen), check_ssd_scan(gen),
                check_ssd_scan_bwd(gen), check_expert_gemm(gen),
                *check_expert_gemm_bwd(gen)]
+    train_attn[0]["wide_heads"] = check_wide_lse(gen)
     family_kernels = [*check_families_attention(gen),
-                      *check_gemm_families(gen)]
+                      *check_gemm_families(gen), *check_wide_attention(gen),
+                      *check_wide_decode(gen)]
     phase_s["kernels"] = time.perf_counter() - t0
     print(json.dumps({"phase2_kernels": kernels + family_kernels}),
           flush=True)
@@ -4093,9 +4303,11 @@ def main() -> int:
     print(f"[phase] train dipaco-150m: {phase_s['train dipaco-150m']:.1f} s", flush=True)
 
     families = {}
-    for name, num_paths, tols, prompt_len, batch, f32_depth in FAMILIES:
+    for name, num_paths, depth, tols, prompt_len, batch, f32_depth in \
+            FAMILIES:
         t0 = time.perf_counter()
-        fcfg = get_config(name).replace(attn_impl="pallas", dtype="bfloat16")
+        fcfg = cut_layers(get_config(name).replace(
+            attn_impl="pallas", dtype="bfloat16"), depth)
         fam = {"serve": serve(fcfg, num_paths, PROFILE_PROMPT)}
         fam["parity"] = {dt: prefill_decode_parity(
             fcfg, dt, tol, prompt_len=prompt_len, batch=batch,

@@ -5,34 +5,42 @@
 // token's GQA attention over the ring KV cache.  q (B,H,D); caches
 // (B,T,KH,D) in f32, bf16 or int8, with per-(token, head) f32 scales
 // (B,T,KH) for int8; cache_index (B,) int32 on the device.  Output
-// (B,H,D) in q's dtype.
+// (B,H,D) in q's dtype.  D in {32, 64, 128, 192, 256}; any number G of
+// query heads a KV head (G divides H).
 //
 // What bounds it on the H100.  Each step reads every valid cache slot of
 // K and V once and does 4*D flops per slot and query head: about one
-// flop per byte for MHA, far below the ~295 flops per byte at which the
-// card stops being bound by memory.  So the bound is bytes: the valid
-// part of the cache over 3.35 TB/s.  At the serving shape (B8, 80 slots)
-// those bytes take less than one kernel launch, so there the launch
-// count is the cost.
+// flop per byte for MHA (G flops per byte under GQA), far below the ~295
+// flops per byte at which the card stops being bound by memory.  So the
+// bound is bytes: the valid part of the cache over 3.35 TB/s.  At the
+// serving shape (B8, 80 slots) those bytes take less than one kernel
+// launch, so there the launch count is the cost.
 //
 // What the design does about it.
-//  * One kernel per call.  Grid (B*KH, num_splits): the wrapper picks
+//  * One kernel per call.  Grid (B*KH*NG, num_splits): the G query heads
+//    of each (b, kh) row in NG = ceil(G / 2) head groups of at most 2,
+//    one block each, so that a block's accumulators stay in registers at
+//    any G.  At the serving shapes (B8 over 80 slots) two heads a block
+//    were faster than four or eight at every query group and head dim of
+//    the families, where eight spilled registers (PERF.md section 6).
+//    The NG blocks of a (b, kh) are neighbours in the grid and read the
+//    same K/V tiles, the later ones mostly from L2.  The wrapper picks
 //    num_splits so that the card has about two blocks per SM.  With one
 //    split (every serving step) a block writes its output directly.  With
 //    several, each block writes its partial (m, l, acc) to the workspace
-//    and bumps an arrival counter for its (b, kh) row; the last block to
-//    arrive combines the splits in split order (so the result does not
-//    depend on which block came last), writes the output and resets the
-//    counter to 0, which the wrapper's counter buffer holds at rest.
+//    and bumps an arrival counter for its (b, kh, group) row; the last
+//    block to arrive combines the splits in split order (so the result
+//    does not depend on which block came last), writes the output and
+//    resets the counter to 0, which the wrapper's counter buffer holds at
+//    rest.
 //  * K and V reach shared memory by TMA: a 4-D tensor map over
 //    (B, T, KH, D) with a box of TILE slots of one (b, kh) row (about
-//    4 KB of K, 32-64 slots), loaded by a producer warp into a ring of 3
-//    stages that complete on mbarriers, so the next tiles' loads overlap
-//    the current tile's math.  Small stages keep several blocks (rows) on
-//    each SM: 8 math warps a block with 3 stages of 4 KB tiles took
-//    0.155 ms at B64 T2048 bf16 on an H100 (700 W), 4 warps with 4 stages
-//    of 8 KB 0.178.  With 4-8 query heads a KV head the heads'
-//    accumulators limit the warps an SM holds, and a block has 4 (Plan).
+//    4 KB of K, 32-64 slots; at least 32 slots, so up to 32 KB at f32
+//    D 256), loaded by a producer warp into a ring of 3 stages that
+//    complete on mbarriers, so the next tiles' loads overlap the current
+//    tile's math.  Small stages keep several blocks (rows) on each SM: 8
+//    math warps a block with 3 stages of 4 KB tiles took 0.155 ms at B64
+//    T2048 bf16 on an H100 (700 W), 4 warps with 4 stages of 8 KB 0.178.
 //    Only tiles that hold a valid slot are requested (after a ring wrap
 //    the valid slots form up to two stretches).  int8 scales have a 4 KH
 //    byte slot stride (no TMA box at KH 1): each thread loads its slots'
@@ -43,12 +51,16 @@
 //    Nothing goes to the host, so a decode step can be captured in a
 //    CUDA graph.  Masked slots are never used; a warp whose slots in a
 //    pass are all masked skips it.
-//  * The math stays f32 on the CUDA cores: with at most 8 query heads a
-//    KV head, a 64-row wgmma tile would be at most one-eighth used, and
+//  * The math stays f32 on the CUDA cores: with at most 2 query heads a
+//    block, a 64-row wgmma tile would be at most 1/32 used, and
 //    the kernel is bound by bytes.  The D/8 threads of a key each take 8
-//    elements from shared memory (16 bytes of bf16); the G query heads of
-//    a KV head live in registers and share every K/V element; int8 is
-//    dequantized with its scales in registers.
+//    elements from shared memory (16 bytes of bf16); the query heads of
+//    the block live in registers and share every K/V element; int8 is
+//    dequantized with its scales in registers.  A key's threads are a
+//    power of two inside one warp, so the score is summed by shuffles:
+//    at D 192 (24 threads of 8) a key takes a whole warp, its last 8
+//    lanes idle (they load nothing and add zeros; the kernel is bound by
+//    bytes, so they cost little).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -95,17 +107,20 @@ __device__ __forceinline__ void load8(const int8_t* p, float* out) {
   for (int i = 0; i < 8; ++i) out[i] = (float)e[i];
 }
 
+// the least power of two >= n
+constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
+// GMAX: the query heads a block holds, 1 or 2 (MAX_GROUP in
+// decode_attention.py)
 template <typename TKV, int D, int GMAX>
 struct Plan {
-  // 8 warps of math up to 2 query heads a KV head.  From 4, the heads'
-  // accumulators take 120-200 registers a thread: 4 warps a block and
-  // at least 3 blocks an SM (at G 8 on an H100: 0.81 ms at B1024 KH1
-  // T2048, against 1.22 with one block an SM and 0.89 with 8 warps)
-  static constexpr int CONSUMERS = GMAX <= 2 ? 256 : 128;
+  static constexpr int CONSUMERS = 256;               // 8 warps of math
   static constexpr int THREADS = CONSUMERS + 32;      // + the producer warp
-  static constexpr int MIN_BLOCKS = GMAX <= 2 ? 1 : 3;
   static constexpr int ROWB = D * (int)sizeof(TKV);   // bytes of one slot
-  static constexpr int TPK = D / VEC;                 // threads per key
+  static constexpr int LANES = D / VEC;               // busy threads a key
+  static constexpr int TPK = pow2_at_least(LANES);    // threads per key
   static constexpr int KPP = CONSUMERS / TPK;         // keys per pass
   static constexpr int RAW = TILE_BYTES / ROWB;
   static constexpr int LO = KPP > 32 ? KPP : 32, HI = KPP > 64 ? KPP : 64;
@@ -120,6 +135,8 @@ struct Plan {
   static constexpr size_t SMEM =
       1024 + (RING > COMBINE ? RING : COMBINE) + 2 * STAGES * 8;
   static_assert(TILE % KPP == 0, "a tile is whole passes");
+  static_assert(TPK <= 32 && LANES * VEC == D, "a key is in one warp");
+  static_assert(SMEM <= 232448, "over the H100's shared memory a block");
 };
 
 // The ring slots of one (b, kh) row that hold a valid position: the
@@ -158,15 +175,15 @@ __device__ __forceinline__ int next_tile(const Valid& v, int tile, int tiles,
 }
 
 template <typename TQ, typename TKV, int D, int GMAX>
-__global__ void __launch_bounds__(Plan<TKV, D, GMAX>::THREADS,
-                                  Plan<TKV, D, GMAX>::MIN_BLOCKS)
+__global__ void __launch_bounds__(Plan<TKV, D, GMAX>::THREADS)
 decode_kernel(const __grid_constant__ CUtensorMap tm_k,
               const __grid_constant__ CUtensorMap tm_v,
               const TQ* __restrict__ q, const float* __restrict__ k_scale,
               const float* __restrict__ v_scale,
               const int* __restrict__ cache_index, float* __restrict__ part,
               int* __restrict__ counters, TQ* __restrict__ out, int T,
-              int KH, int G, int window, int chunk, float scale) {
+              int KH, int G, int NG, int GS, int window, int chunk,
+              float scale) {
   using P = Plan<TKV, D, GMAX>;
   constexpr int CONSUMERS = P::CONSUMERS;
   constexpr bool QUANT = sizeof(TKV) == 1;
@@ -178,8 +195,12 @@ decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   __shared__ int last_block;
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.x / KH;
-  const int kh = blockIdx.x % KH;
+  // blockIdx.x = (b KH + kh) NG + group: the query heads g0 .. g0 + gn - 1
+  // of KV head kh
+  const int b = blockIdx.x / NG / KH;
+  const int kh = blockIdx.x / NG % KH;
+  const int g0 = blockIdx.x % NG * GS;
+  const int gn = min(GS, G - g0);
   const int split = blockIdx.y;
   const int nsplit = gridDim.y;
   const int H = KH * G;
@@ -219,15 +240,17 @@ decode_kernel(const __grid_constant__ CUtensorMap tm_k,
 
   const int kg = tid / P::TPK;             // this thread's key in a pass
   const int sub = tid % P::TPK;            // its 8 dims: sub*8 .. sub*8+7
+  const bool busy = sub < P::LANES;        // false: an idle lane (D 192)
   const int lane = tid % 32;
+  const long head0 = (long)b * H + kh * G + g0;   // the block's first head
 
   float qr[GMAX][VEC];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
 #pragma unroll
     for (int e = 0; e < VEC; ++e) qr[g][e] = 0.f;
-    if (g < G) {
-      const TQ* qp = q + ((long)b * H + kh * G + g) * D + sub * VEC;
+    if (g < gn && busy) {
+      const TQ* qp = q + (head0 + g) * D + sub * VEC;
 #pragma unroll
       for (int e = 0; e < VEC; ++e) qr[g][e] = to_f(qp[e]);
     }
@@ -272,9 +295,11 @@ decode_kernel(const __grid_constant__ CUtensorMap tm_k,
       const int t = tile * P::TILE + r;
       const bool ok = t >= t0 && t < t1 && valid.slot(t);
       if (!__any_sync(0xffffffffu, ok)) continue;   // warp-uniform skip
-      float kf[VEC], vf[VEC];
-      load8(ks + r * D + sub * VEC, kf);
-      load8(vs + r * D + sub * VEC, vf);
+      float kf[VEC] = {}, vf[VEC] = {};
+      if (busy) {
+        load8(ks + r * D + sub * VEC, kf);
+        load8(vs + r * D + sub * VEC, vf);
+      }
       if (QUANT) {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) { kf[e] *= sk[p]; vf[e] *= sv[p]; }
@@ -287,7 +312,7 @@ decode_kernel(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
         for (int off = P::TPK / 2; off > 0; off >>= 1)
           sc += __shfl_xor_sync(0xffffffffu, sc, off);
-        if (ok && g < G) {
+        if (ok && g < gn) {
           sc *= scale;
           const float m_new = fmaxf(m[g], sc);
           const float alpha = expf(m[g] - m_new);
@@ -325,16 +350,18 @@ decode_kernel(const __grid_constant__ CUtensorMap tm_k,
       sm_m[kg * GMAX + g] = m[g];
       sm_l[kg * GMAX + g] = l[g];
     }
+    if (busy) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      sm_acc[(kg * GMAX + g) * D + sub * VEC + e] = acc[g][e];
+      for (int e = 0; e < VEC; ++e)
+        sm_acc[(kg * GMAX + g) * D + sub * VEC + e] = acc[g][e];
+    }
   }
   asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
-  const long rows = (long)gridDim.x / KH * H * nsplit;   // B H nsplit
+  const long rows = (long)gridDim.x / (KH * NG) * H * nsplit;  // B H nsplit
   float* part_m = part;
   float* part_l = part + rows;
   float* part_acc = part + 2 * rows;
-  for (int i = tid; i < G * D; i += CONSUMERS) {
+  for (int i = tid; i < gn * D; i += CONSUMERS) {
     const int g = i / D, d = i % D;
     float M = NEG_INF;
     for (int kk = 0; kk < P::KPP; ++kk) M = fmaxf(M, sm_m[kk * GMAX + g]);
@@ -344,7 +371,7 @@ decode_kernel(const __grid_constant__ CUtensorMap tm_k,
       L += sm_l[kk * GMAX + g] * w;
       A += sm_acc[(kk * GMAX + g) * D + d] * w;
     }
-    const long orow = (long)b * H + kh * G + g;
+    const long orow = head0 + g;
     if (nsplit == 1) {
       out[orow * D + d] = from_f<TQ>(A / fmaxf(L, 1e-30f));
     } else {
@@ -358,7 +385,7 @@ decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
   if (nsplit == 1) return;
 
-  // the last split of this (b, kh) row to arrive combines them all
+  // the last split of this (b, kh, group) row to arrive combines them all
   __threadfence();
   asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
   if (tid == 0)
@@ -366,9 +393,9 @@ decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
   if (!last_block) return;
   __threadfence();
-  for (int i = tid; i < G * D; i += CONSUMERS) {
+  for (int i = tid; i < gn * D; i += CONSUMERS) {
     const int g = i / D, d = i % D;
-    const long prow = ((long)b * H + kh * G + g) * nsplit;
+    const long prow = (head0 + g) * nsplit;
     float M = NEG_INF;
     for (int s = 0; s < nsplit; ++s) M = fmaxf(M, __ldcg(part_m + prow + s));
     float L = 0.f, A = 0.f;
@@ -377,7 +404,7 @@ decode_kernel(const __grid_constant__ CUtensorMap tm_k,
       L += __ldcg(part_l + prow + s) * w;
       A += __ldcg(part_acc + (prow + s) * D + d) * w;
     }
-    out[((long)b * H + kh * G + g) * D + d] = from_f<TQ>(A / fmaxf(L, 1e-30f));
+    out[(head0 + g) * D + d] = from_f<TQ>(A / fmaxf(L, 1e-30f));
   }
   if (tid == 0) counters[blockIdx.x] = 0;
 }
@@ -388,6 +415,7 @@ struct Args {
   int* counters;
   void* out;
   int B, T, H, KH, D, window, nsplit;
+  int NG, GS;               // head groups a KV head, and their size
   cudaStream_t stream;
 };
 
@@ -423,24 +451,20 @@ int launch(const Args& a) {
   // whole tiles a split, so a tile never straddles two splits
   const int per = (a.T + a.nsplit - 1) / a.nsplit;
   const int chunk = (per + P::TILE - 1) / P::TILE * P::TILE;
-  const dim3 grid(a.B * a.KH, a.nsplit);
+  const dim3 grid(a.B * a.KH * a.NG, a.nsplit);
   decode_kernel<TQ, TKV, D, GMAX><<<grid, P::THREADS, P::SMEM, a.stream>>>(
       tm_k, tm_v, static_cast<const TQ*>(a.q),
       static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
       static_cast<const int*>(a.ci), a.part, a.counters,
-      static_cast<TQ*>(a.out), a.T, a.KH, a.H / a.KH, a.window, chunk,
-      1.0f / sqrtf((float)D));
+      static_cast<TQ*>(a.out), a.T, a.KH, a.H / a.KH, a.NG, a.GS, a.window,
+      chunk, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
+// by the size of a head group (1 or 2)
 template <typename TQ, typename TKV, int D>
 int dispatch_g(const Args& a) {
-  const int G = a.H / a.KH;
-  if (G <= 1) return launch<TQ, TKV, D, 1>(a);
-  if (G <= 2) return launch<TQ, TKV, D, 2>(a);
-  if (G <= 4) return launch<TQ, TKV, D, 4>(a);
-  if (G <= 8) return launch<TQ, TKV, D, 8>(a);
-  return cudaErrorInvalidValue;
+  return a.GS == 1 ? launch<TQ, TKV, D, 1>(a) : launch<TQ, TKV, D, 2>(a);
 }
 
 template <typename TQ, typename TKV>
@@ -449,35 +473,70 @@ int dispatch_d(const Args& a) {
     case 32: return dispatch_g<TQ, TKV, 32>(a);
     case 64: return dispatch_g<TQ, TKV, 64>(a);
     case 128: return dispatch_g<TQ, TKV, 128>(a);
+    case 192: return dispatch_g<TQ, TKV, 192>(a);
+    case 256: return dispatch_g<TQ, TKV, 256>(a);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TKV, int D>
+int smem_d(int group) {
+  return group == 1 ? (int)Plan<TKV, D, 1>::SMEM : (int)Plan<TKV, D, 2>::SMEM;
+}
+
+template <typename TKV>
+int smem_of(int D, int group) {
+  switch (D) {
+    case 32: return smem_d<TKV, 32>(group);
+    case 64: return smem_d<TKV, 64>(group);
+    case 128: return smem_d<TKV, 128>(group);
+    case 192: return smem_d<TKV, 192>(group);
+    case 256: return smem_d<TKV, 256>(group);
+    default: return -1;
   }
 }
 
 }  // namespace
 
+// The dynamic shared memory (bytes) a block of the kernel takes at head
+// dim D, kv_dtype (as below) and `group` (1 or 2) query heads a block;
+// -1 for an instantiation that does not exist.
+extern "C" int flash_decode_smem(int D, int kv_dtype, int group) {
+  if (group != 1 && group != 2) return -1;
+  if (kv_dtype == 0) return smem_of<float>(D, group);
+  if (kv_dtype == 1) return smem_of<__nv_bfloat16>(D, group);
+  if (kv_dtype == 2) return smem_of<int8_t>(D, group);
+  return -1;
+}
+
 // q_dtype: 0 = f32, 1 = bf16.  kv_dtype: 0 = f32, 1 = bf16, 2 = int8
 // (then k_scale / v_scale are (B,T,KH) f32).  With num_splits > 1:
 // `part` is f32 scratch of B H num_splits (D + 2) floats, and `counters`
-// B KH int32 that are 0 (the kernel leaves them 0).  window <= 0: no
-// window.  Returns a cudaError_t (0 on success), hopper::ERR_MISALIGNED
-// for a cache whose base is not 16-byte aligned, or
-// hopper::ERR_TENSOR_MAP + a CUresult when a TMA tensor map cannot be
-// encoded.
+// B KH head_groups int32 that are 0 (the kernel leaves them 0).  The G
+// = H / KH query heads of a KV head go to head_groups blocks of GS =
+// ceil(G / head_groups) heads (the last may hold fewer, none may be
+// empty; GS at most 2).  window <= 0: no window.
+// Returns a cudaError_t (0 on success), hopper::ERR_MISALIGNED for a
+// cache whose base is not 16-byte aligned, or hopper::ERR_TENSOR_MAP + a
+// CUresult when a TMA tensor map cannot be encoded.
 extern "C" int flash_decode(const void* q, const void* k_cache,
                             const void* v_cache, const void* k_scale,
                             const void* v_scale, const void* cache_index,
                             void* part, void* counters, void* out, int B,
                             int T, int H, int KH, int D, int window,
-                            int num_splits, int q_dtype, int kv_dtype,
-                            void* stream) {
+                            int num_splits, int head_groups, int q_dtype,
+                            int kv_dtype, void* stream) {
   if (B < 1 || T < 1 || KH < 1 || H % KH != 0 || num_splits < 1 ||
+      head_groups < 1 || head_groups > H / KH ||
       (num_splits > 1 && (part == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
+  const int G = H / KH, GS = (G + head_groups - 1) / head_groups;
+  if (GS > 2 || (head_groups - 1) * GS >= G) return cudaErrorInvalidValue;
   if (!hopper::aligned16(k_cache) || !hopper::aligned16(v_cache))
     return hopper::ERR_MISALIGNED;
   Args a{q, k_cache, v_cache, k_scale, v_scale, cache_index,
          static_cast<float*>(part), static_cast<int*>(counters), out,
-         B, T, H, KH, D, window, num_splits,
+         B, T, H, KH, D, window, num_splits, head_groups, GS,
          static_cast<cudaStream_t>(stream)};
   if (q_dtype == 0 && kv_dtype == 0) return dispatch_d<float, float>(a);
   if (q_dtype == 1 && kv_dtype == 1)

@@ -4,7 +4,8 @@
 // `flash_attention` (pallas_call :96, body `_flash_kernel` :27): causal,
 // sliding-window GQA attention forward with an online softmax over key
 // tiles.  q (B,S,H,D), k and v (B,S,KH,D), f32 or bf16, row-major and
-// contiguous, D in {32, 64, 128}; the output has q's shape and dtype.
+// contiguous, D in {32, 64, 128, 192, 256}; the output has q's shape and
+// dtype.
 // Accumulation is f32.
 //
 // The same kernels, instantiated with LSE = true, replace the training
@@ -40,6 +41,13 @@
 //    is an MN-major B.  P is rounded to bf16 before PV, where the TPU
 //    kernel multiplies f32 P: about 2^-9 relative per term, well inside
 //    the bf16 tolerance of 2e-2; l sums the f32 p.
+//  * D 192 and 256 (gemma-2b, nemotron-4-340b) keep the same tiles: a
+//    row is 3 or 4 boxes of 64 columns, the 5 tiles 120 or 160 KB of
+//    shared memory (one block an SM), and O stays in the warpgroup's
+//    registers, D/2 floats a thread beside S's 32.  PV runs one m64n64
+//    wgmma a box of V (the accumulator of box j is O's registers
+//    32j .. 32j + 31, the same layout as one m64nD), all committed as one
+//    group.
 //  * The output divides by max(l, 1e-30), as the reference does.
 // TMA needs 16-byte aligned base addresses: for a bf16 input that is not
 // (a view that starts inside a row), the entry points return
@@ -50,7 +58,9 @@
 // bar of 1e-4 against the plain version and the f32 token identity of the
 // reference.  It runs 128 threads per 64-query tile: K and V tiles staged
 // in shared memory as f32, the score tile in shared memory, scalar FMAs,
-// the ragged tail masked by S.
+// the ragged tail masked by S.  Its shared memory, smem_bytes<D>, is
+// 161 KB at D 192 and 209 KB at D 256, under the 227 KB a block may
+// take.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -69,6 +79,7 @@ template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (BM * (D + 1) + BN * (D + 1) + BN * D + BM * PP);
 }
+static_assert(smem_bytes<256>() <= 232448, "over a block's shared memory");
 
 template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS)
@@ -229,6 +240,10 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
                                        window, stream);
     case 128: return launch<128, LSE>(q, k, v, o, lse, B, S, H, KH,
                                          causal, window, stream);
+    case 192: return launch<192, LSE>(q, k, v, o, lse, B, S, H, KH,
+                                         causal, window, stream);
+    case 256: return launch<256, LSE>(q, k, v, o, lse, B, S, H, KH,
+                                         causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -245,6 +260,7 @@ template <int D>
 constexpr size_t wgmma_smem() {
   return 1024 + 5 * Tile<D>::BYTES + 3 * 8;
 }
+static_assert(wgmma_smem<256>() <= 232448, "over a block's shared memory");
 
 template <int D, bool LSE>
 __global__ void __launch_bounds__(128)
@@ -386,12 +402,20 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       acc_o[4 * j + 3] *= alpha[1];
     }
 
-    // O += P V, V MN-major
+    // O += P V, V MN-major; from D 192 one m64n64 a box of V
     hopper::fence_regs<D / 2>(acc_o);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
-      hopper::WgmmaRS<D, 1>::run(acc_o, pa[kk], T::mnmajor(vst, kk));
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      if constexpr (D <= 128) {
+        hopper::WgmmaRS<D, 1>::run(acc_o, pa[kk], T::mnmajor(vst, kk));
+      } else {
+#pragma unroll
+        for (int nb = 0; nb < T::NB; ++nb)
+          hopper::WgmmaRS<64, 1>::run(acc_o + 32 * nb, pa[kk],
+                                      T::mnmajor(vst + nb * T::BOX, kk));
+      }
+    }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs<D / 2>(acc_o);
@@ -447,6 +471,10 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
     case 64: return launch_wgmma<64, LSE>(q, k, v, o, lse, B, S, H, KH,
                                           causal, window, stream);
     case 128: return launch_wgmma<128, LSE>(q, k, v, o, lse, B, S, H, KH,
+                                            causal, window, stream);
+    case 192: return launch_wgmma<192, LSE>(q, k, v, o, lse, B, S, H, KH,
+                                            causal, window, stream);
+    case 256: return launch_wgmma<256, LSE>(q, k, v, o, lse, B, S, H, KH,
                                             causal, window, stream);
     default: return cudaErrorInvalidValue;
   }

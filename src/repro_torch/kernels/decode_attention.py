@@ -3,12 +3,13 @@
 flash_decode``).
 
 Single-token GQA attention over the ring KV cache in one kernel launch
-a call: split-K over the cache length, the last split of each row
-combining the others.  Nothing is read back to the host, so a decode
-step can be captured in a CUDA graph.  Takes CUDA tensors only;
-``ops.decode_attention`` sends CPU tensors to the plain version
-(``ref.flash_decode_ref``).  ``flash_decode.launches`` counts the
-launches.
+a call, at any number of query heads a KV head (in groups of at most
+``MAX_GROUP``, one block each): split-K over the cache length, the last
+split of each row combining the others.  Nothing is read back to the
+host, so a decode step can be captured in a CUDA graph.  Takes CUDA
+tensors only; ``ops.decode_attention`` sends CPU tensors to the plain
+version (``ref.flash_decode_ref``).  ``flash_decode.launches`` counts
+the launches.
 """
 from __future__ import annotations
 
@@ -21,40 +22,61 @@ from . import build
 
 _Q_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 8            # query heads per KV head held in registers
+HEAD_DIMS = (32, 64, 128, 192, 256)
+# query heads a block holds in registers: at 80 slots, B8, two a block
+# were faster than four or eight at every query group and head dim the
+# families serve (PERF.md section 6)
+MAX_GROUP = 2
 
 
 def _lib():
     fn = build.load("decode_attention").flash_decode
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 9 + [p]
+        fn.argtypes = [p] * 9 + [i] * 10 + [p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def smem_bytes(head_dim: int, kv_dtype: torch.dtype, group: int) -> int:
+    """The dynamic shared memory a block of the kernel takes (builds the
+    library if it is missing)."""
+    fn = build.load("decode_attention").flash_decode_smem
+    fn.restype = ctypes.c_int
+    n = fn(head_dim, _KV_DTYPE[kv_dtype], group)
+    if n < 0:
+        raise ValueError(f"no instantiation at head_dim {head_dim}, "
+                         f"{kv_dtype}, {group} query heads a block")
+    return n
 
 
 _sm_count: dict = {}     # device index -> multiprocessors
 _counters: dict = {}     # device index -> the kernel's arrival counters
 
 
-def num_splits(batch: int, kv_heads: int, cache_len: int,
-               device: torch.device) -> int:
-    """Splits of the cache length: about two blocks per SM in all, and
-    at least 64 slots per split."""
+def head_groups(group: int) -> int:
+    """The blocks that share the ``group`` query heads of a KV head, each
+    holding MAX_GROUP of them (the last may hold fewer)."""
+    return -(-group // MAX_GROUP)
+
+
+def num_splits(rows: int, cache_len: int, device: torch.device) -> int:
+    """Splits of the cache length for ``rows`` (b, kh, head group) rows:
+    about two blocks per SM in all, and at least 64 slots per split."""
     sms = _sm_count.get(device.index)
     if sms is None:
         sms = _sm_count[device.index] = torch.cuda.get_device_properties(
             device).multi_processor_count
-    want = -(-2 * sms // (batch * kv_heads))
+    want = -(-2 * sms // rows)
     return max(1, min(want, cache_len // 64))
 
 
 def arrival_counters(device: torch.device, rows: int) -> torch.Tensor:
-    """The kernel's int32 arrival counters, one per (b, kh) row, zero at
-    rest (the last block of a row resets its own).  One buffer per
-    device, made once, so a captured CUDA graph keeps a valid pointer:
-    splits > 1 only while B * KH < 2 * SMs, so it holds 2 * SMs rows."""
+    """The kernel's int32 arrival counters, one per (b, kh, head group)
+    row, zero at rest (the last block of a row resets its own).  One
+    buffer per device, made once, so a captured CUDA graph keeps a valid
+    pointer: splits > 1 only while the rows are fewer than 2 * SMs, so it
+    holds 2 * SMs rows."""
     buf = _counters.get(device.index)
     if buf is None:
         buf = _counters[device.index] = torch.zeros(
@@ -104,9 +126,6 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{tuple(k_cache.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if h // kh > MAX_GROUP:
-        raise ValueError(f"{h // kh} query heads per KV head exceeds the "
-                         f"kernel's {MAX_GROUP}")
     if tuple(cache_index.shape) != (b,):
         raise ValueError(f"cache_index must be ({b},), got "
                          f"{tuple(cache_index.shape)}")
@@ -121,21 +140,23 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("flash_decode takes contiguous tensors")
     if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
         raise ValueError("flash_decode needs 16-byte aligned q and caches")
-    splits = num_splits(b, kh, T, dev)
+    groups = head_groups(h // kh)
+    rows = b * kh * groups
+    splits = num_splits(rows, T, dev)
     out = torch.empty_like(q)
     part = counters = None
     if splits > 1:
         # the splits' (m, l, acc) partials, one f32 workspace
         part = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
                            device=dev)
-        counters = arrival_counters(dev, b * kh)
+        counters = arrival_counters(dev, rows)
     ks = k_scale.data_ptr() if quantized else None
     vs = v_scale.data_ptr() if quantized else None
     rc = _lib()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ks, vs,
                 cache_index.data_ptr(),
                 None if part is None else part.data_ptr(),
                 None if counters is None else counters.data_ptr(),
-                out.data_ptr(), b, T, h, kh, d, window or 0, splits,
+                out.data_ptr(), b, T, h, kh, d, window or 0, splits, groups,
                 _Q_DTYPE[q.dtype],
                 _KV_DTYPE[k_cache.dtype],
                 torch.cuda.current_stream(dev).cuda_stream)

@@ -14,7 +14,10 @@ Wrappers of the CUDA kernels, each counting its launches:
 
 They take CUDA tensors only.  ``FlashAttention`` reaches them through
 ``ops``, which sends CPU tensors to the plain versions in ``ref.py``, so
-the Function is the same on both devices.
+the Function is the same on both devices.  The forward takes every head
+dim of ``flash_attention.HEAD_DIMS``; dK/dV and dQ take
+``BWD_HEAD_DIMS`` only, and on the card ``FlashAttention`` refuses the
+others before it launches anything (the plain backward takes any).
 """
 from __future__ import annotations
 
@@ -25,6 +28,21 @@ import torch
 
 from . import build
 from .flash_attention import DTYPES, check_qkv
+
+# head dims of the dK/dV and dQ kernels; 192 and 256 wait for their
+# redesign (ROADMAP queue 2 B: at D 128 dK/dV already takes 238
+# registers a thread)
+BWD_HEAD_DIMS = (32, 64, 128)
+
+
+def check_bwd_head_dim(d: int) -> None:
+    """Raise unless the backward kernels take head_dim ``d``."""
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(
+            f"head_dim {d}: the attention backward kernels take "
+            f"{BWD_HEAD_DIMS}; 192 and 256 wait for their redesign "
+            f"(ROADMAP queue 2 B), so training at this head_dim does not "
+            f"run on the card yet")
 
 
 def _fn(lib: str, name: str, n_ptr: int, n_int: int):
@@ -59,6 +77,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_bwd(name, q, k, v, do, lse, delta, window) -> tuple:
     dims = check_qkv(name, q, k, v, window)
+    check_bwd_head_dim(dims[4])
     b, s, h = dims[:3]
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
             or not do.is_contiguous():
@@ -125,6 +144,10 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
         from . import ops
+        if q.is_cuda:
+            # before the LSE forward: a step that could not take its
+            # backward launches nothing
+            check_bwd_head_dim(q.shape[-1])
         q, k, v = (t.contiguous() for t in (q, k, v))
         o, lse = ops.fwd_with_lse(q, k, v, causal=causal, window=window)
         ctx.save_for_backward(q, k, v, o, lse)

@@ -7,8 +7,9 @@
     # the same on the CPU (plain versions, no kernels); --arch takes every
     # decoder the port declares (its smoke config): dipaco-dense-1b,
     # mamba2-1.3b, qwen2-moe-a2.7b, qwen3-8b, pixtral-12b (text only),
-    # moonshot-v1-16b-a3b, jamba-v0.1-52b; whisper-base (an encoder-
-    # decoder) runs through repro_torch.models.api only
+    # moonshot-v1-16b-a3b, jamba-v0.1-52b, gemma-2b, nemotron-4-340b,
+    # qwen3-moe-235b-a22b; whisper-base (an encoder-decoder) runs
+    # through repro_torch.models.api only
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch mamba2-1.3b

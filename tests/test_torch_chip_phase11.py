@@ -74,6 +74,10 @@ def test_phase11_rehearses_on_cpu(chip_smoke):
         ("flash_attention_lse:dipaco-dense-1b", [8, 1024, 16, 16, 128]),
         ("expert_gemm:moonshot-v1-16b-a3b:decode", [64, 8, 2048, 1408]),
         ("expert_gemm:jamba-v0.1-52b:routing", [16, 40, 4096, 14336]),
-        ("expert_gemm_dw:jamba-v0.1-52b:train", [16, 320, 4096, 14336]))]
+        ("expert_gemm_dw:jamba-v0.1-52b:train", [16, 320, 4096, 14336]),
+        ("flash_decode:gemma-2b:b3", [3, 8, 1, 256, 80]),
+        ("flash_decode:qwen3-moe-235b-a22b:b8", [8, 64, 4, 128, 80]),
+        ("flash_attention:nemotron-4-340b:routing", [8, 32, 96, 8, 192]),
+        ("expert_gemm:qwen3-moe-235b-a22b:decode", [128, 8, 4096, 1536]))]
     chip_smoke.family_launches(rows, out)
     assert all(r["launches"] == 0 for r in rows)          # no card here

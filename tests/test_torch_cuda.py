@@ -33,6 +33,15 @@ DECODE_CASES = [
     (1, 8, 8, 64, 2048, [2047], None),
     (1, 16, 2, 128, 2048, [3000], 700),
     (1, 4, 1, 32, 2048, [5000], None),
+    # the last three families' query groups and head dims, in head groups
+    # of two query heads a block (G 5 at D 256: 2 + 2 + 1), also over
+    # several splits
+    (3, 8, 1, 256, 80, [79, 10, 200], None),
+    (2, 24, 2, 192, 80, [40, 79], None),
+    (2, 32, 2, 128, 80, [79, 100], 32),
+    (2, 10, 2, 256, 64, [7, 63], None),
+    (1, 12, 1, 192, 2048, [2047], None),
+    (1, 16, 1, 128, 2048, [3000], 700),
 ]
 # (B, S, H, KH, D, window): MHA, GQA, MQA, windows, ragged S, and the
 # edges of the bf16 tensor-core tiling: S 1 and 65 (a tail of one row, a
@@ -53,6 +62,11 @@ ATTN_CASES = [
     (1, 333, 4, 1, 32, None),
     (2, 333, 8, 2, 64, 100),
     (1, 333, 8, 2, 128, 100),
+    # D 192 and 256: 3 and 4 column boxes a row, GQA 12 and MQA
+    (2, 32, 8, 1, 256, None),
+    (1, 333, 12, 1, 192, 100),
+    (2, 65, 4, 1, 256, 7),
+    (1, 130, 24, 2, 192, None),
 ]
 
 
@@ -180,6 +194,45 @@ def test_flash_decode_replays_from_a_cuda_graph(cuda, b, T, ci):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(captured, eager)
+
+
+@pytest.mark.cuda
+def test_flash_decode_shared_memory_fits_a_block(cuda):
+    """Every instantiation's dynamic shared memory fits the 232,448 bytes
+    a block may take; an unknown head dim has none."""
+    from repro_torch.kernels import decode_attention as da
+    for d in da.HEAD_DIMS:
+        for t in (torch.float32, torch.bfloat16, torch.int8):
+            for g in range(1, da.MAX_GROUP + 1):
+                assert 0 < da.smem_bytes(d, t, g) <= 232448, (d, t, g)
+    with pytest.raises(ValueError, match="no instantiation"):
+        da.smem_bytes(96, torch.bfloat16, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [192, 256])
+def test_backward_refuses_wide_heads_before_any_launch(cuda, d):
+    """At head_dim 192 and 256 the training Function raises ValueError,
+    naming the head dim and ROADMAP queue 2 B, before the LSE forward
+    launches; the serving forward takes both."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_dkv, flash_attention_lse)
+    q, k, v = (x.to(cuda, torch.bfloat16).requires_grad_() for x in _randn(
+        8, (1, 64, 8, d), (1, 64, 1, d), (1, 64, 1, d)))
+    before = flash_attention_lse.launches, flash_attention.launches
+    with pytest.raises(ValueError, match=f"head_dim {d}.*queue 2 B"):
+        ops.flash_attention(q, k, v, causal=True)
+    assert flash_attention_lse.launches == before[0]
+    lse = torch.zeros(1, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match=f"head_dim {d}"):
+        flash_attention_dkv(*(t.detach() for t in (q, k, v, q)), lse, lse)
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before[1] + 1
+    assert torch.isfinite(out).all()
 
 
 @pytest.mark.cuda

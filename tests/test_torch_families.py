@@ -1,14 +1,17 @@
 """The port's other decoder families against the JAX package in fp32 on
 the CPU at smoke size: ``dipaco-dense-1b`` (the paper's dense baseline),
 ``qwen3-8b`` (qk-norm, GQA, untied), ``pixtral-12b`` (and its patch
-stub), ``moonshot-v1-16b-a3b`` (MoE with shared experts) and
-``jamba-v0.1-52b`` (Mamba / attention, MoE / dense).  ``apply_lm``
+stub), ``moonshot-v1-16b-a3b`` (MoE with shared experts),
+``jamba-v0.1-52b`` (Mamba / attention, MoE / dense), ``gemma-2b``
+(GeGLU, ``embed_scale``, MQA, tied), ``nemotron-4-340b`` (squared-ReLU)
+and ``qwen3-moe-235b-a22b`` (MoE 128 top-8 at full size, qk-norm).  ``apply_lm``
 logits and loss, prefill then greedy decode steps, ``param_axes`` and
 the tree, on the reference's ``init_model`` weights bridged to torch and
 numpy-seeded inputs; the patch stub; one DiLoCo phase of the dense
 baseline against the JAX vector trainer.  The one-shot engine's tokens
 and the gradients are in ``test_torch_families_engine.py`` (split so
-that each file runs well inside two minutes)."""
+that each file runs well inside two minutes); the last three families at
+their published head geometry in ``test_torch_families_heads.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +35,8 @@ from repro_torch.training import make_trainer
 
 ATOL = 1e-5
 FAMILIES = ["dipaco-dense-1b", "qwen3-8b", "pixtral-12b",
-            "moonshot-v1-16b-a3b", "jamba-v0.1-52b"]
+            "moonshot-v1-16b-a3b", "jamba-v0.1-52b", "gemma-2b",
+            "nemotron-4-340b", "qwen3-moe-235b-a22b"]
 
 
 @pytest.fixture(autouse=True, scope="module")

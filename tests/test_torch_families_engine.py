@@ -1,7 +1,8 @@
 """The one-shot engine and the training gradients of the port's other
 decoder families against the JAX package in fp32 on the CPU at smoke
 size (``dipaco-dense-1b``, ``qwen3-8b``, ``pixtral-12b``,
-``moonshot-v1-16b-a3b``, ``jamba-v0.1-52b``): greedy tokens and routed
+``moonshot-v1-16b-a3b``, ``jamba-v0.1-52b``, ``gemma-2b``,
+``nemotron-4-340b``, ``qwen3-moe-235b-a22b``): greedy tokens and routed
 paths with re-routing, and ``forward_loss`` gradients leaf by leaf, on
 the reference's ``init_model`` weights bridged to torch.  The rest of
 the families' parity is in ``test_torch_families.py``."""

@@ -39,7 +39,15 @@ DECODE_CASES = [
     (2, 4, 2, 32, 32, [12, 45], 8, 8),          # sliding window + wrap
     (1, 2, 2, 16, 24, [3], 16, 128),            # block_k > T (shrinks)
     (2, 4, 2, 32, 40, [7, 90], 12, 8),          # non-pow2 T, deep wrap
+    # the published query groups and head dims of the last three families
+    (2, 8, 1, 256, 16, [3, 20], None, 8),       # gemma-2b: G 8, D 256
+    (2, 24, 2, 192, 24, [23, 30], 8, 8),        # nemotron: G 12, D 192
+    (2, 32, 2, 128, 24, [5, 40], None, 8),      # qwen3-moe: G 16, D 128
 ]
+# (B, H, KH, D, T, cache_index): those three with an int8 cache
+WIDE_DECODE_CASES = [(2, 8, 1, 256, 16, [3, 20]),
+                     (2, 24, 2, 192, 24, [23, 30]),
+                     (2, 32, 2, 128, 24, [5, 40])]
 
 
 @pytest.mark.parametrize("b,h,kh,d,T,ci,window,block_k", DECODE_CASES)
@@ -77,6 +85,32 @@ def test_flash_decode_plain_int8_matches_pallas(window, qdtype):
                                atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("b,h,kh,d,T,ci", WIDE_DECODE_CASES)
+def test_flash_decode_plain_int8_wide_heads_match_pallas(b, h, kh, d, T,
+                                                         ci):
+    q, kc, vc = _randn(6, (b, h, d), (b, T, kh, d), (b, T, kh, d))
+    (kq, ks), (vq, vs) = _quant(kc), _quant(vc)
+    ci = np.asarray(ci, np.int32)
+    expect = jflash_decode(jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+                           jnp.asarray(ci), k_scale=jnp.asarray(ks),
+                           v_scale=jnp.asarray(vs), block_k=8,
+                           interpret=True)
+    out = ops.decode_attention(T_(q), T_(kq), T_(vq), T_(ci),
+                               k_scale=T_(ks), v_scale=T_(vs))
+    np.testing.assert_allclose(out.numpy(), np.asarray(expect),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("group,blocks", [
+    (1, 1), (2, 1), (3, 2), (8, 4), (12, 6), (16, 8), (96, 48)])
+def test_flash_decode_head_groups(group, blocks):
+    """The blocks that share a KV head's query heads: MAX_GROUP heads a
+    block, the last holding fewer when the group is odd, none empty."""
+    from repro_torch.kernels.decode_attention import MAX_GROUP, head_groups
+    assert head_groups(group) == blocks
+    assert (blocks - 1) * MAX_GROUP < group <= blocks * MAX_GROUP
+
+
 def test_flash_decode_plain_bf16_matches_reference_ref():
     q, kc, vc = _randn(1, (2, 8, 64), (2, 32, 4, 64), (2, 32, 4, 64))
     ci = np.asarray([9, 27], np.int32)
@@ -97,6 +131,8 @@ ATTN_CASES = [
     (2, 64, 4, 2, 32, 16, 16),
     (2, 50, 4, 2, 32, None, 16),     # ragged: the Pallas side pads
     (1, 77, 4, 4, 32, 24, 32),       # ragged + window
+    (2, 40, 8, 1, 256, None, 16),    # gemma-2b's heads, ragged
+    (2, 48, 24, 2, 192, 16, 16),     # nemotron's (G 12), window
 ]
 
 
