@@ -9,8 +9,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 1. Card and build: prints the card's name and power limit, builds every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, in parallel) and prints the build time and ptxas's report
-   (each entry function's registers, shared memory, spills).  The
-   machine code of the sources with a tensor-core path (``moe_gmm``,
+   (each entry function's registers, shared memory, spills), and the
+   attention backward's registers and spill bytes by instantiation: the
+   bf16 ones at head_dim 192 and 256 must not spill.  The machine code of the sources with a tensor-core path (``moe_gmm``,
    ``flash_attention``, ``flash_attention_bwd``, ``router_assign``,
    ``ssd_scan``, ``ssd_scan_bwd``) must hold wgmma (HGMMA) and TMA loads
    (UTMALDG).  Prints flash decode's dynamic shared memory a block for
@@ -206,14 +207,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    192, 96 heads over 8) and ``qwen3-moe-235b-a22b`` (8 of its 94
    blocks of 128 experts top-8, 1 path of about 42.3 GB; 64 heads over
    4) serve the same traffic, with prefill + decode against plain in
-   bf16 at the served depth and in f32 at 4, 1 and 2 blocks.  They are
-   not trained: the attention backward refuses head_dim 192 and 256.
-   Phase 2 checks and times their shapes too: flash decode at their
-   query groups over phase 3's cache at the batch each path sees (B8,
-   and gemma's 3 and 5) and over 2048 slots, the forward at their
-   routing calls and at B2 S2048, the LSE forward at B8 S1024 H8 KH1
-   D256 (and the backward's refusal), and the expert GEMM at E128 d4096
-   f1536.
+   bf16 at the served depth and in f32 at 4, 1 and 2 blocks.
+   ``gemma-2b`` is trained at all 18 blocks and full width by
+   ``train_family`` (levels (1,), batch 4: at batch 8 its step runs out
+   of the card's memory; 2 phases of 2 inner steps, remat): the loss
+   must fall and the LSE forward, dK/dV and dQ launch
+   exactly as its blocks and steps need.  One inner step's gradients,
+   kernels against plain, for gemma-2b at 4 blocks in f32 and bf16,
+   nemotron-4-340b at 1 block in bf16 and qwen3-moe-235b-a22b at 2
+   blocks in bf16 and 1 in f32.  nemotron and qwen3-moe are not trained
+   through ``make_trainer``: the vector trainer's f32 state (a global
+   copy, two AdamW moments and the outer momentum, 16 bytes a parameter)
+   of nemotron's tables alone is 151 GB, and one qwen3-moe block with
+   its tables (3.74 G parameters) needs about 75 GB with its bf16
+   weights and gradients, before any activation.  Phase 2 checks and times their shapes too: flash decode at
+   their query groups over phase 3's cache at the batch each path sees
+   (B8, and gemma's 3 and 5) and over 2048 slots, the forward at their
+   routing calls and at B2 S2048, the LSE forward, dK/dV and dQ where
+   phase 11 runs them (B8 S1024 H8 KH1 D256, B2 S1024 H96 KH8 D192, B2
+   S1024 H64 KH4 D128) and at ragged, windowed edges of D 192 and 256,
+   and the expert GEMM at E128 d4096 f1536.
 
 ``python3 chip_smoke.py --service-probe`` runs phase 4's pipeline and a
 probe of the stale service's loss (the vector trainer and the service
@@ -243,6 +256,7 @@ import gc
 import json
 import multiprocessing as mp
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -274,12 +288,12 @@ from repro_torch.data import SyntheticCorpus, shard_documents  # noqa: E402
 from repro_torch.deploy import (CanaryGate, DeploymentRegistry,  # noqa: E402
                                 Publisher)
 from repro_torch.infra import ShardedOuterExecutors, ckpt_db  # noqa: E402
-from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
-    attention_delta, flash_attention_dkv, flash_attention_dq,
+    attention_delta, dkv_launches, flash_attention_dkv, flash_attention_dq,
     flash_attention_lse)
 from repro_torch.core.dipaco import (diloco_config,  # noqa: E402
                                      flat_moe_config, stack_tree)
@@ -402,6 +416,10 @@ def bound(n_bytes: int, n_ops: float, dtype) -> tuple:
 
 def randn(gen, *shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+# the mangled names of the bf16 backward kernels at head_dim 192 and 256
+WIDE_BWD = re.compile(r"(dkv|dq)_wgmmaILi(192|256)E")
 
 
 def tensor_core_sass() -> None:
@@ -731,18 +749,22 @@ def backward_is_deterministic(q, k, v, do, lse, delta) -> dict:
     return same
 
 
-def training_attention_timings(gen, b, s, h, d) -> list:
+def training_attention_timings(gen, b, s, h, d, kh=None) -> list:
     """bf16 at the training shape: each kernel, its plain version, its
-    bound, and SDPA as the yardstick: its forward for the LSE forward,
+    bound, and SDPA as the yardstick (``enable_gqa`` where there are
+    fewer KV heads than query heads): its forward for the LSE forward,
     its backward alone (``autograd.grad`` of a kept forward) for dK/dV
     and dQ, which it computes together.  The backward is also printed
     as forward+backward minus forward, a reading that spreads more
     between calls.  The timed inputs' outputs are held to their plain
-    versions as ``check_training_attention``'s cases are."""
+    versions as ``check_training_attention``'s cases are, and both
+    backward kernels relaunched for identical bits."""
     dtype = torch.bfloat16
-    q, k, v, do = (randn(gen, b, s, h, d, dtype=dtype) for _ in range(4))
+    kh = kh or h
+    q, do = (randn(gen, b, s, h, d, dtype=dtype) for _ in range(2))
+    k, v = (randn(gen, b, s, kh, d, dtype=dtype) for _ in range(2))
     got, plain = training_attention(q, k, v, do, True, None)
-    held = held_to_plain(got, plain, {"shape": [b, s, h, h, d],
+    held = held_to_plain(got, plain, {"shape": [b, s, h, kh, d],
                                       "causal": True, "window": None},
                          dtype, s)
     o, lse = plain[0], plain[1]
@@ -755,9 +777,11 @@ def training_attention_timings(gen, b, s, h, d) -> list:
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
+    gqa = {"enable_gqa": True} if kh != h else {}
 
     def sdpa_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              **gqa)
 
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
@@ -773,10 +797,13 @@ def training_attention_timings(gen, b, s, h, d) -> list:
     print(f"[train_attention] SDPA backward {bwd_ms:.4f} ms alone, "
           f"{bwd_diff_ms:.4f} ms as forward+backward minus forward")
     same = backward_is_deterministic(q, k, v, do, lse, delta)
+    sdpa_call = ("F.scaled_dot_product_attention(is_causal=True, "
+                 "enable_gqa=True)" if gqa else
+                 "F.scaled_dot_product_attention(is_causal=True)")
     timed = {
         "lse": (lambda: flash_attention_lse(q, k, v),
                 lambda: ref.fwd_with_lse_ref(q, k, v), fwd_ms,
-                "F.scaled_dot_product_attention(is_causal=True), forward"),
+                f"{sdpa_call}, forward"),
         "dkv": (lambda: flash_attention_dkv(q, k, v, do, lse, delta),
                 lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do),
                 bwd_ms, "SDPA backward alone (autograd.grad of a kept "
@@ -801,7 +828,7 @@ def training_attention_timings(gen, b, s, h, d) -> list:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": None,
-            "shape": [b, s, h, h, d], "dtype": "bf16", "max_abs_err": err,
+            "shape": [b, s, h, kh, d], "dtype": "bf16", "max_abs_err": err,
             "ms": time_ms(kernel, 20), "plain_ms": time_ms(plain_fn, 5),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms, "library_call": lib_call,
@@ -1479,53 +1506,60 @@ def check_wide_attention(gen) -> list:
     return rows
 
 
-def check_wide_lse(gen) -> dict:
-    """The LSE forward at gemma-2b's heads (B8 S1024 H8 KH1 D256) against
-    its plain version in bf16 and f32, timed in bf16 (no path of this
-    run launches it there: the backward refuses D 192 and 256), and that
-    refusal: the training Function raises ValueError before any launch."""
-    b, s, h, kh, d = 8, 1024, 8, 1, 256
-    out = {"shape": [b, s, h, kh, d], "cases": []}
-    for dtype in (torch.bfloat16, torch.float32):
-        q = randn(gen, b, s, h, d, dtype=dtype)
-        k, v = (randn(gen, b, s, kh, d, dtype=dtype) for _ in range(2))
-        o, lse = flash_attention_lse(q, k, v)
-        torch.cuda.synchronize()
-        po, plse = ref.fwd_with_lse_ref(q, k, v)
-        case = {"dtype": str(dtype),
-                "o_max_abs_err": (o.float() - po.float()).abs().max().item(),
-                "lse_max_abs_err": (lse - plse).abs().max().item(),
-                "tol": {"o": TOL[dtype], "lse": 1e-4}}
-        print(f"[flash_attention_lse D256] {case}")
-        out["cases"].append(case)
-        assert case["o_max_abs_err"] <= TOL[dtype], case
-        assert case["lse_max_abs_err"] <= 1e-4, case
-        if dtype == torch.bfloat16:
-            bound_ms, bound_by = bound(
-                nbytes(q, k, v, o, lse),
-                4 * d * h * b * attention_pairs(s, True, None), dtype)
-            out.update({
-                "ms": time_ms(lambda: flash_attention_lse(q, k, v), 20),
-                "plain_ms": time_ms(lambda: ref.fwd_with_lse_ref(q, k, v),
-                                    5),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None})
-        del q, k, v, o, lse, po, plse
-    refused = {}
-    for dd in (192, 256):
-        q = randn(gen, 1, 64, 8, dd, dtype=torch.bfloat16).requires_grad_()
-        k, v = (randn(gen, 1, 64, 1, dd, dtype=torch.bfloat16)
-                for _ in range(2))
-        before = flash_attention_lse.launches
-        try:
-            ops.flash_attention(q, k, v, causal=True)
-        except ValueError as e:
-            refused[dd] = str(e)
-        assert dd in refused and "queue 2 B" in refused[dd], (dd, refused)
-        assert flash_attention_lse.launches == before
-    out["backward_refuses"] = refused
-    print(f"[flash_attention_lse D256] {out}", flush=True)
-    return out
+# gemma-2b's batch in phase 11's training.  Its 2.51 G parameters are
+# 5.0 GB in bf16; the vector trainer's f32 global copy, AdamW moments and
+# outer momentum add 37.3 GiB, and the f32 log-softmax over 256000 words
+# is 4.2 GB at B4 S1024, its gradient as much again.  At batch 8 the
+# step ran out of the card's 79.18 GiB in the backward (74.01 GiB
+# allocated, 7.81 GiB asked for), so the batch is cut to 4; blocks and
+# widths stay whole
+GEMMA_TRAIN_BATCH = 4
+# gemma-2b's peak learning rate.  At the other families' 2e-3 its loss
+# rises from the second phase's first step to its second, 12.02 -> 14.81
+# (10.75 -> 21.34 warmed up over tau), and the second phase's mean is
+# above the first's; the plain attention gives the same losses to 0.06
+# (tools/gemma_lr_probe.py on the H100), so the rise is not the kernels'.
+# At 5e-4 the phase means fall, 13.04 -> 11.34
+GEMMA_PEAK_LR = 5e-4
+# (family, B, S, H, KH, D): where phase 11's main path takes the attention
+# backward at the last three families' heads: gemma-2b's training batch,
+# and the gradient checks' batch of nemotron-4-340b (G 12 at D 192) and
+# qwen3-moe-235b-a22b (G 16 at D 128)
+WIDE_TRAIN = (("gemma-2b", GEMMA_TRAIN_BATCH, DOC_LEN, 8, 1, 256),
+              ("nemotron-4-340b", 2, DOC_LEN, 96, 8, 192),
+              ("qwen3-moe-235b-a22b", 2, DOC_LEN, 64, 4, 128))
+# (B, S, H, KH, D, window): ragged S and windows at D 192 and 256, over
+# the column chunks of the bf16 dK/dV and the 32-row f32 tiles of D 256
+WIDE_TRAIN_EDGES = ((1, 333, 24, 2, 192, 100), (1, 65, 12, 1, 192, None),
+                    (2, 200, 8, 1, 256, None), (2, 65, 8, 1, 256, 7))
+
+
+def check_wide_training(gen) -> list:
+    """The LSE forward, dK/dV and dQ at WIDE_TRAIN's shapes: held to their
+    plain versions in bf16 (timed beside their bound, their plain version
+    and SDPA ``enable_gqa``, and both backward kernels relaunched for
+    identical bits) and in f32; gemma-2b's heads also at batch 8; and
+    WIDE_TRAIN_EDGES in both dtypes."""
+    rows = []
+    for family, b, s, h, kh, d in WIDE_TRAIN:
+        train = training_attention_timings(gen, b, s, h, d, kh=kh)
+        for r in train:
+            r["name"] += f":{family}"
+        train[0]["cases"] = [check_training_case(gen, b, s, h, kh, d, True,
+                                                 None, torch.float32)]
+        if family == "gemma-2b":
+            # also at TRAIN_BATCH (8), the batch every other family trains
+            # at, which gemma's training leaves only for want of memory
+            train[0]["cases"] += [
+                check_training_case(gen, TRAIN_BATCH, s, h, kh, d, True,
+                                    None, dt)
+                for dt in (torch.bfloat16, torch.float32)]
+        print(f"[train_attention {family}] timed {train}", flush=True)
+        rows += train
+    rows[0]["edges"] = [check_training_case(gen, b, s, h, kh, d, True, w, dt)
+                        for dt in (torch.bfloat16, torch.float32)
+                        for b, s, h, kh, d, w in WIDE_TRAIN_EDGES]
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2124,15 +2158,17 @@ FAMILY_TAU, FAMILY_PHASES, FAMILY_GRAD_DEPTH = 2, 2, 4
 MAMBA_24_BLOCK_PEAK_GIB = 60.39
 
 
-def train_family(name: str, dcfg, batch: int, depth) -> dict:
+def train_family(name: str, dcfg, batch: int, depth,
+                 dev: str = "cuda", peak_lr: float = 2e-3) -> dict:
     """make_trainer(backend="vector") at full width (bf16, pallas, remat
     "full"), 2 phases of 2 inner steps on synthetic 1024-token documents
-    sharded by domain; the loss must fall and every kernel of the path
-    launch as its blocks and steps need."""
-    cfg = get_config(name).replace(attn_impl="pallas", dtype="bfloat16")
+    sharded by domain; the loss must fall and, on the card, every kernel
+    of the path launch as its blocks and steps need."""
+    cfg = get_config(name).replace(attn_impl="pallas", dtype="bfloat16",
+                                   remat=True)
     if depth is not None:
         cfg = cfg.replace(num_layers=depth)
-    assert cfg.remat and cfg.remat_policy == "full", cfg
+    assert cfg.remat_policy == "full", cfg
     t_start = time.perf_counter()
     paths = int(np.prod(dcfg.levels))
     corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, num_domains=4,
@@ -2141,14 +2177,14 @@ def train_family(name: str, dcfg, batch: int, depth) -> dict:
                                             return_domains=True)
     ds = shard_documents(docs, domains % paths, paths)
     free_memory()
-    torch.cuda.reset_peak_memory_stats()
-    base = api.init_model(cfg, seed=0, device="cuda")
+    reset_peak(dev)
+    base = api.init_model(cfg, seed=0, device=dev)
     n_params = sum(t.numel() for t in tree_leaves(base))
-    tr = make_trainer(cfg, dcfg, ds, backend="vector", device="cuda",
-                      base_params=base, batch_size=batch, peak_lr=2e-3,
+    tr = make_trainer(cfg, dcfg, ds, backend="vector", device=dev,
+                      base_params=base, batch_size=batch, peak_lr=peak_lr,
                       warmup=1, total_steps=FAMILY_PHASES * FAMILY_TAU)
     del base
-    timer = tr._step_fn = TimedStep(tr._step_fn)
+    timer = tr._step_fn = TimedStep(tr._step_fn, dev)
     reset_counts()
     phases = []
     try:
@@ -2167,7 +2203,7 @@ def train_family(name: str, dcfg, batch: int, depth) -> dict:
               f"GiB, trainer state GiB {held}", flush=True)
         print(torch.cuda.memory_summary(abbreviated=True), flush=True)
         raise
-    torch.cuda.synchronize()
+    sync(dev)
     launched = counts()
     W = tr.num_workers
     steps = W * FAMILY_TAU * FAMILY_PHASES
@@ -2182,7 +2218,8 @@ def train_family(name: str, dcfg, batch: int, depth) -> dict:
             "expert_gemm_dx": gemms * moe * steps,
             "expert_gemm_dw": gemms * moe * steps,
             "flash_attention_lse": 2 * attn * steps,
-            "flash_attention_dkv": attn * steps,
+            "flash_attention_dkv": attn * steps * dkv_launches(
+                torch.bfloat16, cfg.head_dim),
             "flash_attention_dq": attn * steps}
     out = {"blocks": cfg.num_layers, "workers": W, "paths": paths,
            "batch": batch, "params_per_path": n_params, "phases": phases,
@@ -2190,7 +2227,7 @@ def train_family(name: str, dcfg, batch: int, depth) -> dict:
            "inner_step_s_all": timer.seconds,
            "tokens_per_s": batch * DOC_LEN * W / float(np.median(
                timer.seconds)),
-           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "peak_memory_gib": peak_gib(dev),
            "launches": launched, "expected_launches": want,
            "seconds": time.perf_counter() - t_start}
     print(f"[train {name}] {out}")
@@ -2200,7 +2237,8 @@ def train_family(name: str, dcfg, batch: int, depth) -> dict:
               f"functional step: {MAMBA_24_BLOCK_PEAK_GIB} GiB)", flush=True)
     losses = [ph["mean_loss"] for ph in phases]
     assert all(np.isfinite(losses)) and losses[1] < losses[0], out
-    assert {k: launched[k] for k in want} == want, (launched, want)
+    if dev == "cuda":
+        assert {k: launched[k] for k in want} == want, (launched, want)
     del tr
     free_memory()
     return out
@@ -2212,6 +2250,22 @@ def leaf_names(tree, prefix: str = "") -> list:
         return [n for k, v in tree.items()
                 for n in leaf_names(v, f"{prefix}/{k}" if prefix else k)]
     return [prefix]
+
+
+def slab_sums(a, b, slab: int = 1 << 26) -> tuple:
+    """(||a - b||^2, ||a||^2, ||b||^2) in f32 on b's device, over slabs of
+    ``slab`` elements of the flattened leaves (``a`` may lie on the host),
+    so that no f32 copy of a leaf of several GB is made whole: one of
+    nemotron-4-340b's 256000 x 18432 tables is 17.6 GiB in f32, its
+    block's stacked (1, 18432, 73728) MLP leaves 5.1 GiB each."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    sums = [0.0, 0.0, 0.0]
+    for i in range(0, b.numel(), slab):
+        x = a[i:i + slab].to(b.device).float()
+        y = b[i:i + slab].float()
+        for j, t in enumerate((x - y, x, y)):
+            sums[j] += float(t.square().sum())
+    return tuple(sums)
 
 
 def family_grad_parity(name: str, dtype: str, depth: int = FAMILY_GRAD_DEPTH,
@@ -2248,9 +2302,9 @@ def family_grad_parity(name: str, dtype: str, depth: int = FAMILY_GRAD_DEPTH,
             if offload and impl == "pallas":
                 leaves = [x.cpu() for x in leaves]
             grads[impl] = (float(loss), leaves)
-    errs = [float((a.to(b.device).float() - b.float()).norm()
-                  / b.float().norm().clamp_min(1e-30))
+    sums = [slab_sums(a, b)
             for a, b in zip(grads["pallas"][1], grads["full"][1])]
+    errs = [(d2 / max(b2, 1e-60)) ** 0.5 for d2, _, b2 in sums]
     names = leaf_names(params)
     worst = sorted(range(len(errs)), key=lambda i: -errs[i])[:3]
     out = {"blocks": cfg.num_layers, "loss_kernels": grads["pallas"][0],
@@ -2259,7 +2313,7 @@ def family_grad_parity(name: str, dtype: str, depth: int = FAMILY_GRAD_DEPTH,
            "worst_leaves": {names[i]: errs[i] for i in worst},
            "offloaded": offload, "launches": launched}
     print(f"[train grads {name}] {dtype}: {out}")
-    assert all(float(b.float().norm()) > 0 for b in grads["pallas"][1])
+    assert all(a2 > 0 for _, a2, _ in sums)
     assert max(errs) <= TRAIN_GRAD_TOL[dtype], out
     del params, grads
     free_memory()
@@ -3851,12 +3905,27 @@ FAMILIES11 = (("dipaco-dense-1b", 1, None, 4), ("qwen3-8b", 2, 18, 4),
               ("qwen3-moe-235b-a22b", 1, 8, 2))
 # one inner step's gradients, kernels vs plain, (name, blocks, dtypes):
 # jamba at 8 blocks in bf16 only (a 4-block cut holds no attention block,
-# and 8 blocks in f32 do not fit beside their gradients)
+# and 8 blocks in f32 do not fit beside their gradients).  gemma-2b at 4
+# blocks; nemotron-4-340b at 1 block in bf16 only (25.8 GB of weights,
+# two untied 256000 x 18432 tables of 9.4 GB each and a 6.9 GB block; in
+# f32 its weights beside their gradients would be 103 GB);
+# qwen3-moe-235b-a22b at 2 blocks in bf16 (12.5 GB) and 1 in f32 (15 GB)
 GRAD11 = (("qwen3-8b", 4, ("float32", "bfloat16")),
           ("pixtral-12b", 4, ("float32", "bfloat16")),
           ("moonshot-v1-16b-a3b", 4, ("float32", "bfloat16")),
           ("whisper-base", 4, ("float32", "bfloat16")),
-          ("jamba-v0.1-52b", 8, ("bfloat16",)))
+          ("jamba-v0.1-52b", 8, ("bfloat16",)),
+          ("gemma-2b", 4, ("float32", "bfloat16")),
+          ("nemotron-4-340b", 1, ("bfloat16",)),
+          ("qwen3-moe-235b-a22b", 2, ("bfloat16",)),
+          ("qwen3-moe-235b-a22b", 1, ("float32",)))
+# gemma-2b is trained at all 18 blocks through make_trainer(backend=
+# "vector") by ``train_family``: levels (1,), GEMMA_TRAIN_BATCH,
+# FAMILY_PHASES phases of FAMILY_TAU.  nemotron-4-340b and
+# qwen3-moe-235b-a22b are not trained through make_trainer: the two f32
+# AdamW moments of nemotron's tables alone are 75 GB, and one block of
+# qwen3-moe with its tables already needs about 75 GB of trainer state
+# and weights
 # pixtral's patch stub: requests through api.prefill with the config's
 # patch positions and this many text tokens; its gradient check's batch
 # carries this many patch positions of its 1024-token documents
@@ -4131,8 +4200,9 @@ def family_launches(rows, fam) -> None:
     in the GQA families' serving runs' decode steps of the row's batch,
     flash decode at a last three family's heads in its own decode steps
     of the row's batch and flash attention in its routing calls,
-    the LSE forward, dK/dV and dQ in the dense baseline's training, the
-    expert GEMM in the MoE families' serving runs' decode steps of the
+    the LSE forward, dK/dV and dQ in the dense baseline's and gemma-2b's
+    training and in the bf16 gradient checks of nemotron-4-340b and
+    qwen3-moe-235b-a22b (which are not trained), the expert GEMM in the MoE families' serving runs' decode steps of the
     row's capacity (dropless: C requests) and in their routing calls,
     dX and dW in their bf16 gradient checks.  On the card a row whose
     shape the run never launched fails it."""
@@ -4155,7 +4225,9 @@ def family_launches(rows, fam) -> None:
         elif kernel == "flash_attention":
             row["launches"] = served(family, "features", kernel)
         elif kernel.startswith("flash_attention"):
-            row["launches"] = fam[family]["train"]["launches"][kernel]
+            run = fam[family].get("train") or \
+                fam[family]["train_grad_parity"]["bfloat16"]
+            row["launches"] = run["launches"][kernel]
         elif kernel == "expert_gemm":
             row["launches"] = served(
                 family, f"decode:{row['shape'][1]}"
@@ -4169,8 +4241,9 @@ def family_launches(rows, fam) -> None:
 
 def families11() -> dict:
     """Phase 11: each decoder family, whisper-base, the dense baseline's
-    training, and the gradient checks; each family's weights freed before
-    the next family's are drawn.  Nothing is written to the disk."""
+    and gemma-2b's training, and the gradient checks; each family's
+    weights freed before the next family's are drawn.  Nothing is written
+    to the disk."""
     t_start = time.perf_counter()
     out = {}
     for name, num_paths, depth, f32_depth in FAMILIES11:
@@ -4181,10 +4254,16 @@ def families11() -> dict:
     print(f"[families] train dipaco-dense-1b: {time.perf_counter() - t0:.1f}"
           f" s", flush=True)
     t0 = time.perf_counter()
+    out["gemma-2b"]["train"] = train_family(
+        "gemma-2b", DiPaCoConfig(levels=(1,), inner_steps=FAMILY_TAU),
+        GEMMA_TRAIN_BATCH, None, dev=DEV11, peak_lr=GEMMA_PEAK_LR)
+    print(f"[families] train gemma-2b: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
     for name, depth, dtypes in GRAD11:
-        out[name]["train_grad_parity"] = {
+        out[name].setdefault("train_grad_parity", {}).update({
             dt: family_grad_parity(name, dt, depth, grad_extras(name),
-                                   dev=DEV11) for dt in dtypes}
+                                   dev=DEV11) for dt in dtypes})
     print(f"[families] gradient checks: {time.perf_counter() - t0:.1f} s",
           flush=True)
     out["seconds"] = time.perf_counter() - t_start
@@ -4209,11 +4288,22 @@ def main() -> int:
     reports = build.build()
     print(f"[build] {time.perf_counter() - t0:.1f} s for "
           f"{list(build.SOURCES)}")
+    # spill bytes of the bf16 backward at head_dim 192 / 256 (the two
+    # column chunks of dK/dV at each, and dQ), which must be 0.  A library
+    # built before this run has no report: remove build/kernels to read it
+    wide_bwd = {}
     for name, log in reports.items():
+        entry = ""
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 print(f"[ptxas {name}] {line.strip()}")
+            if "entry function" in line:
+                entry = line
+            elif "spill stores" in line and WIDE_BWD.search(entry):
+                words = line.split()
+                wide_bwd[entry] = int(words[4]) + int(words[8])
+    assert len(wide_bwd) == 6 and not any(wide_bwd.values()), wide_bwd
     tensor_core_sass()
     decode_smem()
 
@@ -4265,10 +4355,9 @@ def main() -> int:
                *train_attn, check_router_assign(gen), check_ssd_scan(gen),
                check_ssd_scan_bwd(gen), check_expert_gemm(gen),
                *check_expert_gemm_bwd(gen)]
-    train_attn[0]["wide_heads"] = check_wide_lse(gen)
     family_kernels = [*check_families_attention(gen),
                       *check_gemm_families(gen), *check_wide_attention(gen),
-                      *check_wide_decode(gen)]
+                      *check_wide_decode(gen), *check_wide_training(gen)]
     phase_s["kernels"] = time.perf_counter() - t0
     print(json.dumps({"phase2_kernels": kernels + family_kernels}),
           flush=True)

@@ -57,6 +57,18 @@
 // that is not, the entry points return hopper::ERR_MISALIGNED, which the
 // wrapper raises on.
 //
+// Head dims 192 and 256 (gemma-2b, nemotron-4-340b).  One warpgroup
+// holding dK, dV, S^T and dP^T in f32 registers needs D + 64 of them a
+// thread: 256 at D 192 and 320 at D 256, past the 255 a thread may have.
+// So there dK/dV runs as two launches over the columns of dK and dV, the
+// first 128 and the rest (`dkv_wgmma<D, C0, NC>`): each recomputes S^T
+// and dP^T over the full D and accumulates only its NC columns, NC / 2
+// registers each, as at D 128 (1.5x the tensor-core products of one pass
+// at D 256, 1.5x at D 192).  Column chunks start on a 64-column box, so
+// the MN-major operands of the chunk are the tile's own boxes.  dQ holds
+// D / 2 + 64 registers a thread and stays one pass, its dS K product
+// issued as wgmmas of at most 128 columns (`rs_columns`).
+//
 // f32 keeps the CUDA-core kernels (`dkv_kernel`, `dq_kernel`): wgmma takes
 // f32 only as TF32, which would break the f32 bar of 1e-4 against the
 // plain version.  256 threads a block; the tiles staged in shared memory
@@ -64,7 +76,10 @@
 // and (B, KH); K and V stay in shared memory, dK and dV accumulate in
 // registers over the query tiles and the G = H/KH query heads of the
 // group, as `_dkv_kernel` :205-221 does.  dQ: one block per 64-query
-// tile and (B, H); Q, dO, lse and delta stay in shared memory.
+// tile and (B, H); Q, dO, lse and delta stay in shared memory.  At D 256
+// four 64-row tiles of 257 floats pass the 232,448 bytes a block may
+// have, so the rows a block owns (keys for dK/dV, queries for dQ) come
+// in tiles of 32 there (`f32_rows`).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -82,65 +97,72 @@ constexpr int BK = 64;          // keys per tile
 // f32 on the CUDA cores
 // ---------------------------------------------------------------------------
 constexpr int THREADS = 256;
-constexpr int PP = BK + 1;      // padded row of a score tile
+constexpr int PP = BK + 1;      // padded row of a 64-key score tile
+// the most shared memory a block may have on the H100
+constexpr size_t MAX_SMEM = 232448;
 
-// rows [s0, s0 + 64) of one head of a (B,S,NH,D) tensor into a 64 x (D+1)
-// tile; rows past S are zero
+// rows a block owns in the f32 kernels: 64, or 32 at D 256
 template <int D>
+__host__ __device__ constexpr int f32_rows() { return D <= 192 ? 64 : 32; }
+
+// rows [s0, s0 + ROWS) of one head of a (B,S,NH,D) tensor into a
+// ROWS x (D+1) tile; rows past S are zero
+template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const float* base,
                                           int s0, int S, long row_stride) {
   constexpr int DP = D + 1;
-  for (int i = threadIdx.x; i < 64 * D; i += THREADS) {
+  for (int i = threadIdx.x; i < ROWS * D; i += THREADS) {
     const int r = i / D, c = i % D, s = s0 + r;
     dst[r * DP + c] = s < S ? base[(long)s * row_stride + c] : 0.f;
   }
 }
 
-// The two 64x64 products of a (query tile, key tile) pair: thread owns
-// query rows rg*4 + a and key columns cg + 16*jj.  Returns, in p and ds,
-// P = exp(s*scale - lse) and dS = P * (dP - delta) * scale (0 where masked).
-template <int D>
+// The two products of a (query tile of 16 NA rows, key tile of 16 NJ
+// keys) pair: thread owns query rows rg*NA + a and key columns cg + 16*jj.
+// Returns, in p and ds, P = exp(s*scale - lse) and dS = P * (dP - delta)
+// * scale (0 where masked).
+template <int D, int NA, int NJ>
 __device__ __forceinline__ void p_and_ds(const float* Qs, const float* dOs,
                                          const float* Ks, const float* Vs,
                                          const float* lse_s,
                                          const float* delta_s, int q0, int k0,
                                          int S, int causal, int window,
-                                         float scale, float p[4][4],
-                                         float ds[4][4]) {
+                                         float scale, float p[NA][NJ],
+                                         float ds[NA][NJ]) {
   constexpr int DP = D + 1;
   const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
-  float s[4][4], dp[4][4];
+  float s[NA][NJ], dp[NA][NJ];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < NA; ++a)
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) s[a][jj] = dp[a][jj] = 0.f;
+    for (int jj = 0; jj < NJ; ++jj) s[a][jj] = dp[a][jj] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float qv[4], ov[4], kv[4], vv[4];
+    float qv[NA], ov[NA], kv[NJ], vv[NJ];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      qv[a] = Qs[(rg * 4 + a) * DP + d];
-      ov[a] = dOs[(rg * 4 + a) * DP + d];
+    for (int a = 0; a < NA; ++a) {
+      qv[a] = Qs[(rg * NA + a) * DP + d];
+      ov[a] = dOs[(rg * NA + a) * DP + d];
     }
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
+    for (int jj = 0; jj < NJ; ++jj) {
       kv[jj] = Ks[(cg + 16 * jj) * DP + d];
       vv[jj] = Vs[(cg + 16 * jj) * DP + d];
     }
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < NA; ++a)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < NJ; ++jj) {
         s[a][jj] += qv[a] * kv[jj];
         dp[a][jj] += ov[a] * vv[jj];
       }
   }
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int rr = rg * 4 + a, qpos = q0 + rr;
+  for (int a = 0; a < NA; ++a) {
+    const int rr = rg * NA + a, qpos = q0 + rr;
     const float l = lse_s[rr], dl = delta_s[rr];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
+    for (int jj = 0; jj < NJ; ++jj) {
       const int kpos = k0 + cg + 16 * jj;
       bool ok = kpos < S && qpos < S;
       if (causal) ok = ok && kpos <= qpos;
@@ -152,17 +174,23 @@ __device__ __forceinline__ void p_and_ds(const float* Qs, const float* dOs,
   }
 }
 
+// K, V (KR rows), Q, dO (64 rows), P and dS (64 x KR+1), lse and delta
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (4 * 64 * (D + 1) + 2 * BQ * PP + 2 * BQ);
+  constexpr int KR = f32_rows<D>();
+  return sizeof(float) *
+         (2 * KR * (D + 1) + 2 * BQ * (D + 1) + 2 * BQ * (KR + 1) + 2 * BQ);
 }
 
+// Q, dO (QR rows), K, V (64 rows), dS (QR x 65), lse and delta
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (4 * 64 * (D + 1) + BQ * PP + 2 * BQ);
+  constexpr int QR = f32_rows<D>();
+  return sizeof(float) * (2 * QR * (D + 1) + 2 * BK * (D + 1) + QR * PP +
+                          2 * QR);
 }
 
-// grid (ceil(S/BK), B*KH)
+// grid (ceil(S/KR), B*KH)
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -170,46 +198,50 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ lse, const float* __restrict__ delta,
            float* __restrict__ dk, float* __restrict__ dv, int S, int H,
            int KH, int causal, int window, float scale) {
+  constexpr int KR = f32_rows<D>();     // keys a block
+  constexpr int KP = KR + 1;            // padded row of a score tile
+  constexpr int TPR = THREADS / KR;     // threads a key row of dK and dV
   extern __shared__ float smem[];
   constexpr int DP = D + 1;
-  float* Ks = smem;                 // BK x DP
-  float* Vs = Ks + 64 * DP;         // BK x DP
-  float* Qs = Vs + 64 * DP;         // BQ x DP
-  float* dOs = Qs + 64 * DP;        // BQ x DP
-  float* Ps = dOs + 64 * DP;        // BQ x PP
-  float* dSs = Ps + BQ * PP;        // BQ x PP
-  float* lse_s = dSs + BQ * PP;     // BQ
+  float* Ks = smem;                 // KR x DP
+  float* Vs = Ks + KR * DP;         // KR x DP
+  float* Qs = Vs + KR * DP;         // BQ x DP
+  float* dOs = Qs + BQ * DP;        // BQ x DP
+  float* Ps = dOs + BQ * DP;        // BQ x KP
+  float* dSs = Ps + BQ * KP;        // BQ x KP
+  float* lse_s = dSs + BQ * KP;     // BQ
   float* delta_s = lse_s + BQ;      // BQ
 
   const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * KR;
   const int b = blockIdx.y / KH;
   const int kh = blockIdx.y % KH;
   const int G = H / KH;
   const long q_stride = (long)H * D;
   const long k_stride = (long)KH * D;
 
-  load_tile<D>(Ks, k + ((long)b * S * KH + kh) * D, k0, S, k_stride);
-  load_tile<D>(Vs, v + ((long)b * S * KH + kh) * D, k0, S, k_stride);
+  load_tile<D, KR>(Ks, k + ((long)b * S * KH + kh) * D, k0, S, k_stride);
+  load_tile<D, KR>(Vs, v + ((long)b * S * KH + kh) * D, k0, S, k_stride);
 
   // query tiles that reach this key tile
-  const int k_last = min(k0 + BK, S) - 1;
+  const int k_last = min(k0 + KR, S) - 1;
   const int q_begin = causal ? (k0 / BQ) * BQ : 0;
   const int q_end = window > 0 ? min(S, k_last + window) : S;   // exclusive
 
-  // accumulator ownership: key row j, columns cq + 4*cc
-  const int j = tid >> 2, cq = tid & 3;
-  float dk_acc[D / 4], dv_acc[D / 4];
+  // accumulator ownership: key row j, columns cq + TPR*cc
+  const int j = tid / TPR, cq = tid % TPR;
+  float dk_acc[D / TPR], dv_acc[D / TPR];
 #pragma unroll
-  for (int cc = 0; cc < D / 4; ++cc) dk_acc[cc] = dv_acc[cc] = 0.f;
+  for (int cc = 0; cc < D / TPR; ++cc) dk_acc[cc] = dv_acc[cc] = 0.f;
   const int rg = tid >> 4, cg = tid & 15;
 
   for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
     for (int g = 0; g < G; ++g) {
       const int h = kh * G + g;
       __syncthreads();            // previous tiles fully consumed
-      load_tile<D>(Qs, q + ((long)b * S * H + h) * D, q0, S, q_stride);
-      load_tile<D>(dOs, dout + ((long)b * S * H + h) * D, q0, S, q_stride);
+      load_tile<D, BQ>(Qs, q + ((long)b * S * H + h) * D, q0, S, q_stride);
+      load_tile<D, BQ>(dOs, dout + ((long)b * S * H + h) * D, q0, S,
+                       q_stride);
       if (tid < BQ) {
         const int s = q0 + tid;
         const long row = ((long)b * H + h) * S + s;
@@ -217,25 +249,25 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         delta_s[tid] = s < S ? delta[row] : 0.f;
       }
       __syncthreads();
-      float p[4][4], ds[4][4];
-      p_and_ds<D>(Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, S, causal, window,
-                  scale, p, ds);
+      float p[4][KR / 16], ds[4][KR / 16];
+      p_and_ds<D, 4, KR / 16>(Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, S,
+                              causal, window, scale, p, ds);
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          Ps[(rg * 4 + a) * PP + cg + 16 * jj] = p[a][jj];
-          dSs[(rg * 4 + a) * PP + cg + 16 * jj] = ds[a][jj];
+        for (int jj = 0; jj < KR / 16; ++jj) {
+          Ps[(rg * 4 + a) * KP + cg + 16 * jj] = p[a][jj];
+          dSs[(rg * 4 + a) * KP + cg + 16 * jj] = ds[a][jj];
         }
       __syncthreads();
       for (int i = 0; i < BQ; ++i) {
-        const float pv = Ps[i * PP + j], dsv = dSs[i * PP + j];
+        const float pv = Ps[i * KP + j], dsv = dSs[i * KP + j];
         const float* orow = dOs + i * DP + cq;
         const float* qrow = Qs + i * DP + cq;
 #pragma unroll
-        for (int cc = 0; cc < D / 4; ++cc) {
-          dv_acc[cc] += pv * orow[4 * cc];
-          dk_acc[cc] += dsv * qrow[4 * cc];
+        for (int cc = 0; cc < D / TPR; ++cc) {
+          dv_acc[cc] += pv * orow[TPR * cc];
+          dk_acc[cc] += dsv * qrow[TPR * cc];
         }
       }
     }
@@ -245,14 +277,14 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (s < S) {
     const long base = (((long)b * S + s) * KH + kh) * D + cq;
 #pragma unroll
-    for (int cc = 0; cc < D / 4; ++cc) {
-      dk[base + 4 * cc] = dk_acc[cc];
-      dv[base + 4 * cc] = dv_acc[cc];
+    for (int cc = 0; cc < D / TPR; ++cc) {
+      dk[base + TPR * cc] = dk_acc[cc];
+      dv[base + TPR * cc] = dv_acc[cc];
     }
   }
 }
 
-// grid (ceil(S/BQ), B*H)
+// grid (ceil(S/QR), B*H)
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -260,27 +292,29 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ lse, const float* __restrict__ delta,
           float* __restrict__ dq, int S, int H, int KH, int causal, int window,
           float scale) {
+  constexpr int QR = f32_rows<D>();     // queries a block
+  constexpr int TPR = THREADS / QR;     // threads a query row of dQ
   extern __shared__ float smem[];
   constexpr int DP = D + 1;
-  float* Qs = smem;                 // BQ x DP
-  float* dOs = Qs + 64 * DP;        // BQ x DP
-  float* Ks = dOs + 64 * DP;        // BK x DP
-  float* Vs = Ks + 64 * DP;         // BK x DP
-  float* dSs = Vs + 64 * DP;        // BQ x PP
-  float* lse_s = dSs + BQ * PP;     // BQ
-  float* delta_s = lse_s + BQ;      // BQ
+  float* Qs = smem;                 // QR x DP
+  float* dOs = Qs + QR * DP;        // QR x DP
+  float* Ks = dOs + QR * DP;        // BK x DP
+  float* Vs = Ks + BK * DP;         // BK x DP
+  float* dSs = Vs + BK * DP;        // QR x PP
+  float* lse_s = dSs + QR * PP;     // QR
+  float* delta_s = lse_s + QR;      // QR
 
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * QR;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int kh = h / (H / KH);
   const long q_stride = (long)H * D;
   const long k_stride = (long)KH * D;
 
-  load_tile<D>(Qs, q + ((long)b * S * H + h) * D, q0, S, q_stride);
-  load_tile<D>(dOs, dout + ((long)b * S * H + h) * D, q0, S, q_stride);
-  if (tid < BQ) {
+  load_tile<D, QR>(Qs, q + ((long)b * S * H + h) * D, q0, S, q_stride);
+  load_tile<D, QR>(dOs, dout + ((long)b * S * H + h) * D, q0, S, q_stride);
+  if (tid < QR) {
     const int s = q0 + tid;
     const long row = ((long)b * H + h) * S + s;
     lse_s[tid] = s < S ? lse[row] : 0.f;
@@ -288,38 +322,38 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // key tiles that this query tile attends to
-  const int q_last = min(q0 + BQ, S) - 1;
+  const int q_last = min(q0 + QR, S) - 1;
   const int k_end = causal ? q_last + 1 : S;                  // exclusive
   const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
   const int k_begin = (k_first / BK) * BK;
 
-  // accumulator ownership: query row i, columns cq + 4*cc
-  const int i = tid >> 2, cq = tid & 3;
-  float dq_acc[D / 4];
+  // accumulator ownership: query row i, columns cq + TPR*cc
+  const int i = tid / TPR, cq = tid % TPR;
+  float dq_acc[D / TPR];
 #pragma unroll
-  for (int cc = 0; cc < D / 4; ++cc) dq_acc[cc] = 0.f;
+  for (int cc = 0; cc < D / TPR; ++cc) dq_acc[cc] = 0.f;
   const int rg = tid >> 4, cg = tid & 15;
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();              // previous tiles fully consumed
-    load_tile<D>(Ks, k + ((long)b * S * KH + kh) * D, k0, S, k_stride);
-    load_tile<D>(Vs, v + ((long)b * S * KH + kh) * D, k0, S, k_stride);
+    load_tile<D, BK>(Ks, k + ((long)b * S * KH + kh) * D, k0, S, k_stride);
+    load_tile<D, BK>(Vs, v + ((long)b * S * KH + kh) * D, k0, S, k_stride);
     __syncthreads();
-    float p[4][4], ds[4][4];
-    p_and_ds<D>(Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, S, causal, window,
-                scale, p, ds);
+    float p[QR / 16][4], ds[QR / 16][4];
+    p_and_ds<D, QR / 16, 4>(Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, S,
+                            causal, window, scale, p, ds);
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < QR / 16; ++a)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
-        dSs[(rg * 4 + a) * PP + cg + 16 * jj] = ds[a][jj];
+        dSs[(rg * (QR / 16) + a) * PP + cg + 16 * jj] = ds[a][jj];
     __syncthreads();
     const float* dsrow = dSs + i * PP;
     for (int jk = 0; jk < BK; ++jk) {
       const float dsv = dsrow[jk];
       const float* krow = Ks + jk * DP + cq;
 #pragma unroll
-      for (int cc = 0; cc < D / 4; ++cc) dq_acc[cc] += dsv * krow[4 * cc];
+      for (int cc = 0; cc < D / TPR; ++cc) dq_acc[cc] += dsv * krow[TPR * cc];
     }
   }
 
@@ -327,7 +361,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (s < S) {
     float* out = dq + (((long)b * S + s) * H + h) * D + cq;
 #pragma unroll
-    for (int cc = 0; cc < D / 4; ++cc) out[4 * cc] = dq_acc[cc];
+    for (int cc = 0; cc < D / TPR; ++cc) out[TPR * cc] = dq_acc[cc];
   }
 }
 
@@ -338,11 +372,13 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
                            int S, int H, int KH, int causal, int window,
                            cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
+  static_assert(smem <= MAX_SMEM, "dkv_kernel: shared memory past a block");
   cudaError_t err = cudaFuncSetAttribute(
       dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BK - 1) / BK, B * KH);
+  constexpr int KR = f32_rows<D>();
+  const dim3 grid((S + KR - 1) / KR, B * KH);
   dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
@@ -358,10 +394,12 @@ cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
                           int KH, int causal, int window,
                           cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
+  static_assert(smem <= MAX_SMEM, "dq_kernel: shared memory past a block");
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
+  constexpr int QR = f32_rows<D>();
+  const dim3 grid((S + QR - 1) / QR, B * H);
   dq_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
@@ -385,6 +423,25 @@ constexpr size_t wgmma_smem() {
   return 1024 + 6 * Tile<D>::BYTES + 4 * 8 + 2 * 2 * BQ * sizeof(float);
 }
 
+// the columns of dK and dV that one dkv_wgmma launch accumulates: all D
+// up to D 128; at D 192 and 256 the first 128, then the rest
+template <int D>
+constexpr int dkv_cols() { return D <= 128 ? D : 128; }
+
+// acc (64 x NC, f32) += A (64 x 16, the bf16 fragment a) B, B the
+// columns [C0, C0 + NC) of the k16 step kk of an MN-major tile: one wgmma
+// of at most 128 columns a piece, each piece starting on a 64-column box
+template <int D, int C0, int NC>
+__device__ __forceinline__ void rs_columns(float* acc, const uint32_t* a,
+                                           const uint8_t* tile, int kk) {
+  using T = Tile<D>;
+  constexpr int N = NC < 128 ? NC : 128;
+  static_assert(C0 % T::DB == 0, "a piece starts on a box");
+  hopper::WgmmaRS<N, 1>::run(acc, a,
+                             T::mnmajor(tile + (C0 / T::DB) * T::BOX, kk));
+  if constexpr (NC > N) rs_columns<D, C0 + N, NC - N>(acc + N / 2, a, tile, kk);
+}
+
 // TMA loads of the tiles (rows s0.., head `head`, batch `batch`) of two
 // tensors of one shape into one stage, completing on `bar`
 template <int D>
@@ -402,9 +459,9 @@ __device__ __forceinline__ void load_pair(uint8_t* a, const CUtensorMap* ma,
   }
 }
 
-// rows r0 and r0 + 8 of a 64 x D accumulator into rows row0 + r0.. of a
+// rows r0 and r0 + 8 of a 64 x N accumulator into rows row0 + r0.. of a
 // bf16 tensor of row stride `stride` elements, rows below `rows` only
-template <int D>
+template <int N>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long stride,
                                            const float* acc, int row0,
                                            int r0, int c0, int rows) {
@@ -414,14 +471,15 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long stride,
     if (row >= rows) continue;
     __nv_bfloat16* dst = out + (long)row * stride + c0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < N / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
   }
 }
 
-// grid (ceil(S/BK), B*KH), 128 threads: one warpgroup per 64-key tile
-template <int D>
+// grid (ceil(S/BK), B*KH), 128 threads: one warpgroup per 64-key tile,
+// accumulating the columns [C0, C0 + NC) of dK and dV
+template <int D, int C0, int NC>
 __global__ void __launch_bounds__(128)
 dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
           const __grid_constant__ CUtensorMap tm_k,
@@ -477,9 +535,9 @@ dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
   // this thread's accumulator rows r0 and r0 + 8, columns 8 j + c0 + 0..1
   const int r0 = warp * 16 + lane / 4, c0 = 2 * (lane % 4);
   const float scale_log2 = scale * LOG2E;
-  float acc_dk[D / 2], acc_dv[D / 2], acc_s[BQ / 2], acc_dp[BQ / 2];
+  float acc_dk[NC / 2], acc_dv[NC / 2], acc_s[BQ / 2], acc_dp[BQ / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  for (int i = 0; i < NC / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
 
   hopper::mbar_wait(&bar[0], 0);
   for (int it = 0; it < steps; ++it) {
@@ -545,11 +603,11 @@ dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     hopper::to_a_fragments<BQ>(acc_s, pa);
 
     // dV += P^T dO: queries are the reduction, so dO is an MN-major B
-    hopper::fence_regs<D / 2>(acc_dv);
+    hopper::fence_regs<NC / 2>(acc_dv);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      hopper::WgmmaRS<D, 1>::run(acc_dv, pa[kk], T::mnmajor(dost, kk));
+      rs_columns<D, C0, NC>(acc_dv, pa[kk], dost, kk);
     hopper::wgmma_commit();
     hopper::wgmma_wait<1>();              // dP^T is done; dV may run on
     hopper::fence_regs<BQ / 2>(acc_dp);
@@ -566,22 +624,22 @@ dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     hopper::to_a_fragments<BQ>(acc_dp, da);
 
     // dK += dS^T Q, Q an MN-major B of the same tile
-    hopper::fence_regs<D / 2>(acc_dk);
+    hopper::fence_regs<NC / 2>(acc_dk);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      hopper::WgmmaRS<D, 1>::run(acc_dk, da[kk], T::mnmajor(qst, kk));
+      rs_columns<D, C0, NC>(acc_dk, da[kk], qst, kk);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
-    hopper::fence_regs<D / 2>(acc_dv);
-    hopper::fence_regs<D / 2>(acc_dk);
+    hopper::fence_regs<NC / 2>(acc_dv);
+    hopper::fence_regs<NC / 2>(acc_dk);
     if (it + 1 < steps && tid < 2 * BQ) rows[(st ^ 1) * 2 * BQ + tid] = staged;
     __syncthreads();            // this stage is consumed: it may be reloaded
   }
 
-  const long base = ((long)b * S * KH + kh) * D;
-  store_rows<D>(dk + base, (long)KH * D, acc_dk, k0, r0, c0, S);
-  store_rows<D>(dv + base, (long)KH * D, acc_dv, k0, r0, c0, S);
+  const long base = ((long)b * S * KH + kh) * D + C0;
+  store_rows<NC>(dk + base, (long)KH * D, acc_dk, k0, r0, c0, S);
+  store_rows<NC>(dv + base, (long)KH * D, acc_dv, k0, r0, c0, S);
 }
 
 // grid (ceil(S/BQ), B*H), 128 threads: one warpgroup per 64-query tile
@@ -700,7 +758,7 @@ dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      hopper::WgmmaRS<D, 1>::run(acc_dq, da[kk], T::mnmajor(kst, kk));
+      rs_columns<D, 0, D>(acc_dq, da[kk], kst, kk);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs<D / 2>(acc_dq);
@@ -723,6 +781,35 @@ int encode_maps(CUtensorMap* tm_q, CUtensorMap* tm_k, CUtensorMap* tm_v,
   return rc;
 }
 
+// dkv_wgmma over the columns [C0, D), dkv_cols<D>() columns a launch
+template <int D, int C0>
+int launch_dkv_columns(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                       const CUtensorMap& tm_v, const CUtensorMap& tm_do,
+                       const float* lse, const float* delta, void* dk,
+                       void* dv, int B, int S, int H, int KH, int causal,
+                       int window, cudaStream_t stream) {
+  constexpr int NC = D - C0 < dkv_cols<D>() ? D - C0 : dkv_cols<D>();
+  constexpr size_t smem = wgmma_smem<D>();
+  static_assert(smem <= MAX_SMEM, "dkv_wgmma: shared memory past a block");
+  // once per instantiation (a thread-safe static)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dkv_wgmma<D, C0, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((S + BK - 1) / BK, B * KH);
+  dkv_wgmma<D, C0, NC><<<grid, 128, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), S, H, KH, causal, window,
+      1.0f / sqrtf((float)D));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if constexpr (C0 + NC < D)
+    return launch_dkv_columns<D, C0 + NC>(tm_q, tm_k, tm_v, tm_do, lse,
+                                          delta, dk, dv, B, S, H, KH, causal,
+                                          window, stream);
+  return 0;
+}
+
 template <int D>
 int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
@@ -732,17 +819,8 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
   int rc = encode_maps(&tm_q, &tm_k, &tm_v, &tm_do, q, k, v, dout, B, S, H,
                        KH, D);
   if (rc != 0) return rc;
-  constexpr size_t smem = wgmma_smem<D>();
-  // once per instantiation (a thread-safe static)
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((S + BK - 1) / BK, B * KH);
-  dkv_wgmma<D><<<grid, 128, smem, stream>>>(
-      tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), S, H, KH, causal, window,
-      1.0f / sqrtf((float)D));
-  return cudaGetLastError();
+  return launch_dkv_columns<D, 0>(tm_q, tm_k, tm_v, tm_do, lse, delta, dk,
+                                  dv, B, S, H, KH, causal, window, stream);
 }
 
 template <int D>
@@ -755,6 +833,7 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
                        KH, D);
   if (rc != 0) return rc;
   constexpr size_t smem = wgmma_smem<D>();
+  static_assert(smem <= MAX_SMEM, "dq_wgmma: shared memory past a block");
   static const cudaError_t attr = cudaFuncSetAttribute(
       dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
@@ -765,13 +844,15 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// f(std::integral_constant<int, D>) for D in {32, 64, 128}
+// f(std::integral_constant<int, D>) for D in {32, 64, 128, 192, 256}
 template <typename F>
 int by_head_dim(int D, F f) {
   switch (D) {
     case 32: return f(std::integral_constant<int, 32>());
     case 64: return f(std::integral_constant<int, 64>());
     case 128: return f(std::integral_constant<int, 128>());
+    case 192: return f(std::integral_constant<int, 192>());
+    case 256: return f(std::integral_constant<int, 256>());
     default: return cudaErrorInvalidValue;
   }
 }

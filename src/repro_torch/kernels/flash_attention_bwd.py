@@ -14,10 +14,10 @@ Wrappers of the CUDA kernels, each counting its launches:
 
 They take CUDA tensors only.  ``FlashAttention`` reaches them through
 ``ops``, which sends CPU tensors to the plain versions in ``ref.py``, so
-the Function is the same on both devices.  The forward takes every head
-dim of ``flash_attention.HEAD_DIMS``; dK/dV and dQ take
-``BWD_HEAD_DIMS`` only, and on the card ``FlashAttention`` refuses the
-others before it launches anything (the plain backward takes any).
+the Function is the same on both devices.  All three take every head
+dim of ``flash_attention.HEAD_DIMS`` (32, 64, 128, 192, 256); at 192 and
+256 the bf16 dK/dV runs as two launches over the columns of dK and dV
+(csrc/flash_attention_bwd.cu), and counts two (``dkv_launches``).
 """
 from __future__ import annotations
 
@@ -28,22 +28,6 @@ import torch
 
 from . import build
 from .flash_attention import DTYPES, check_qkv
-
-# head dims of the dK/dV and dQ kernels; 192 and 256 wait for their
-# redesign (ROADMAP queue 2 B: at D 128 dK/dV already takes 238
-# registers a thread)
-BWD_HEAD_DIMS = (32, 64, 128)
-
-
-def check_bwd_head_dim(d: int) -> None:
-    """Raise unless the backward kernels take head_dim ``d``."""
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(
-            f"head_dim {d}: the attention backward kernels take "
-            f"{BWD_HEAD_DIMS}; 192 and 256 wait for their redesign "
-            f"(ROADMAP queue 2 B), so training at this head_dim does not "
-            f"run on the card yet")
-
 
 def _fn(lib: str, name: str, n_ptr: int, n_int: int):
     fn = getattr(build.load(lib), name)
@@ -77,7 +61,6 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_bwd(name, q, k, v, do, lse, delta, window) -> tuple:
     dims = check_qkv(name, q, k, v, window)
-    check_bwd_head_dim(dims[4])
     b, s, h = dims[:3]
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
             or not do.is_contiguous():
@@ -90,6 +73,13 @@ def _check_bwd(name, q, k, v, do, lse, delta, window) -> tuple:
                              f"({b}, {h}, {s}) on {q.device}, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     return dims
+
+
+def dkv_launches(dtype: torch.dtype, d: int) -> int:
+    """The kernel launches of one dK/dV call: the bf16 kernel takes dK's
+    and dV's columns 128 at a time (``dkv_cols`` in the .cu), the f32
+    kernel all of them at once."""
+    return -(-d // 128) if dtype == torch.bfloat16 else 1
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
@@ -106,7 +96,8 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
         b, s, h, kh, d, int(causal), window or 0, DTYPES[q.dtype],
         _stream(q))
     build.check_rc(rc, "flash_attention_dkv")
-    build.count_launch(flash_attention_dkv)
+    for _ in range(dkv_launches(q.dtype, d)):
+        build.count_launch(flash_attention_dkv)
     return dk, dv
 
 
@@ -144,10 +135,6 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
         from . import ops
-        if q.is_cuda:
-            # before the LSE forward: a step that could not take its
-            # backward launches nothing
-            check_bwd_head_dim(q.shape[-1])
         q, k, v = (t.contiguous() for t in (q, k, v))
         o, lse = ops.fwd_with_lse(q, k, v, causal=causal, window=window)
         ctx.save_for_backward(q, k, v, o, lse)

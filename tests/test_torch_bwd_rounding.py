@@ -43,6 +43,8 @@ def _tensor_core_bwd(q, k, v, o, lse, do, causal, window):
     (1, 333, 8, 2, 64, True, 100),
     (2, 65, 4, 2, 128, True, 7),
     (2, 128, 4, 4, 64, True, None),
+    (2, 80, 8, 1, 256, True, None),
+    (1, 96, 12, 1, 192, True, 40),
 ])
 def test_bf16_p_and_ds_stay_inside_the_gradient_tolerance(b, s, h, kh, d,
                                                           causal, window):

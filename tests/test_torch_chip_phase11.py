@@ -4,8 +4,9 @@ With ``DEV11 = "cpu"`` and the smoke configs the phase's control flow
 runs end to end: each decoder family served through the one-shot engine
 (the plain pass) and checked against the plain path in bf16 and
 f32, pixtral's patch prefill, whisper-base through ``models.api`` with
-and without the cross K/V, the dense baseline trained for two phases,
-and the gradient checks.  On the card the same functions also check
+and without the cross K/V, the dense baseline and gemma-2b trained for
+two phases, and the gradient checks (gemma-2b's, nemotron-4-340b's and
+qwen3-moe-235b-a22b's among them).  On the card the same functions also check
 every kernel's launch count, profile a generate and print the peak
 memory."""
 import gc
@@ -63,9 +64,18 @@ def test_phase11_rehearses_on_cpu(chip_smoke):
     train = out["dipaco-dense-1b"]["train"]
     assert train["workers"] == 1 and len(train["phases"]) == 2
     assert train["phases"][1]["mean_loss"] < train["phases"][0]["mean_loss"]
+    gemma = out["gemma-2b"]["train"]
+    assert (gemma["workers"], gemma["paths"], gemma["batch"]) == (
+        1, 1, chip_smoke.GEMMA_TRAIN_BATCH)
+    assert gemma["blocks"] == 2 and len(gemma["phases"]) == 2
+    assert gemma["phases"][1]["mean_loss"] < gemma["phases"][0]["mean_loss"]
+    want = {}
     for name, depth, dtypes in chip_smoke.GRAD11:
+        for dt in dtypes:
+            want.setdefault(name, {})[dt] = depth
+    for name, depths in want.items():
         grads = out[name]["train_grad_parity"]
-        assert set(grads) == set(dtypes)
+        assert {dt: g["blocks"] for dt, g in grads.items()} == depths
         assert all(g["max_rel_err"] <= g["tol"] for g in grads.values())
     # the kernels' launch counts of the card fill phase 2's rows
     rows = [{"name": n, "shape": shape} for n, shape in (
@@ -78,6 +88,9 @@ def test_phase11_rehearses_on_cpu(chip_smoke):
         ("flash_decode:gemma-2b:b3", [3, 8, 1, 256, 80]),
         ("flash_decode:qwen3-moe-235b-a22b:b8", [8, 64, 4, 128, 80]),
         ("flash_attention:nemotron-4-340b:routing", [8, 32, 96, 8, 192]),
+        ("flash_attention_dkv:gemma-2b", [8, 1024, 8, 1, 256]),
+        ("flash_attention_dq:nemotron-4-340b", [2, 1024, 96, 8, 192]),
+        ("flash_attention_lse:qwen3-moe-235b-a22b", [2, 1024, 64, 4, 128]),
         ("expert_gemm:qwen3-moe-235b-a22b:decode", [128, 8, 4096, 1536]))]
     chip_smoke.family_launches(rows, out)
     assert all(r["launches"] == 0 for r in rows)          # no card here

@@ -210,32 +210,6 @@ def test_flash_decode_shared_memory_fits_a_block(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [192, 256])
-def test_backward_refuses_wide_heads_before_any_launch(cuda, d):
-    """At head_dim 192 and 256 the training Function raises ValueError,
-    naming the head dim and ROADMAP queue 2 B, before the LSE forward
-    launches; the serving forward takes both."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention_bwd import (
-        flash_attention_dkv, flash_attention_lse)
-    q, k, v = (x.to(cuda, torch.bfloat16).requires_grad_() for x in _randn(
-        8, (1, 64, 8, d), (1, 64, 1, d), (1, 64, 1, d)))
-    before = flash_attention_lse.launches, flash_attention.launches
-    with pytest.raises(ValueError, match=f"head_dim {d}.*queue 2 B"):
-        ops.flash_attention(q, k, v, causal=True)
-    assert flash_attention_lse.launches == before[0]
-    lse = torch.zeros(1, 8, 64, device=cuda)
-    with pytest.raises(ValueError, match=f"head_dim {d}"):
-        flash_attention_dkv(*(t.detach() for t in (q, k, v, q)), lse, lse)
-    with torch.no_grad():
-        out = ops.flash_attention(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    assert flash_attention.launches == before[1] + 1
-    assert torch.isfinite(out).all()
-
-
-@pytest.mark.cuda
 def test_model_decode_goes_through_both_kernels(cuda):
     """The wiring at smoke size: the pallas model's cache-free forward
     launches flash attention once per block, a decode step flash decode
@@ -262,7 +236,10 @@ def test_model_decode_goes_through_both_kernels(cuda):
 # S, a non-causal GQA window), the other head dims, a long ragged S over
 # several tiles, the edges of the bf16 tensor-core tiling (S 1; S 65, a
 # second tile of one row, at D 128 under a window and at D 32 with GQA G
-# 4, not causal) and the training shape: (B, S, H, KH, D, causal, window)
+# 4, not causal), the training shape, and the last three families' heads
+# (D 256 G 8, D 192 G 12 under a window, D 128 G 16; ragged S over the
+# column chunks of dK/dV at D 192 and 256, and the 32-row f32 tiles at
+# D 256): (B, S, H, KH, D, causal, window)
 BWD_CASES = [
     (2, 128, 4, 2, 32, True, None),
     (2, 96, 2, 1, 64, True, 24),
@@ -275,6 +252,11 @@ BWD_CASES = [
     (2, 65, 4, 2, 128, True, 7),
     (2, 65, 8, 2, 32, False, None),
     (8, 1024, 16, 16, 64, True, None),
+    (2, 200, 8, 1, 256, True, None),
+    (2, 333, 24, 2, 192, True, 100),
+    (1, 65, 16, 1, 128, True, None),
+    (2, 65, 4, 2, 256, False, 7),
+    (1, 1, 12, 1, 192, True, None),
 ]
 # gradients: f32 differs by summation order only; bf16 by one bf16
 # rounding of each output, relative to the largest gradient
@@ -294,8 +276,8 @@ def test_training_attention_kernels_match_plain(cuda, dtype, b, s, h, kh, d,
     """The LSE forward, dK/dV and dQ kernels against their plain
     versions on the same inputs."""
     from repro_torch.kernels.flash_attention_bwd import (
-        attention_delta, flash_attention_dkv, flash_attention_dq,
-        flash_attention_lse)
+        attention_delta, dkv_launches, flash_attention_dkv,
+        flash_attention_dq, flash_attention_lse)
     q, k, v, do = (x.to(cuda, dtype) for x in _randn(
         7, (b, s, h, d), (b, s, kh, d), (b, s, kh, d), (b, s, h, d)))
     counts = (flash_attention_lse.launches, flash_attention_dkv.launches,
@@ -312,7 +294,8 @@ def test_training_attention_kernels_match_plain(cuda, dtype, b, s, h, kh, d,
                             window=window)
     torch.cuda.synchronize()
     assert (flash_attention_lse.launches, flash_attention_dkv.launches,
-            flash_attention_dq.launches) == tuple(c + 1 for c in counts)
+            flash_attention_dq.launches) == tuple(
+        c + n for c, n in zip(counts, (1, dkv_launches(dtype, d), 1)))
     plain = ref.flash_attention_bwd_ref(q, k, v, po, plse, do, causal=causal,
                                         window=window)
     for name, a, p in zip(("dq", "dk", "dv"), (dq, dk, dv), plain):
@@ -329,7 +312,8 @@ def test_training_attention_kernels_match_plain(cuda, dtype, b, s, h, kh, d,
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,kh,d,causal,window", [
     (2, 333, 8, 2, 64, True, 100), (2, 65, 4, 2, 128, True, 7),
-    (2, 65, 8, 2, 32, False, None)])
+    (2, 65, 8, 2, 32, False, None), (2, 200, 8, 1, 256, True, None),
+    (2, 333, 24, 2, 192, True, 100), (1, 130, 64, 4, 128, True, None)])
 def test_bf16_backward_kernels_are_bit_identical_across_launches(
         cuda, b, s, h, kh, d, causal, window):
     """Every block owns its output rows (no atomics), so two launches on
@@ -751,25 +735,50 @@ def test_ssd_and_gemm_ops_backward_through_kernels(cuda, dtype):
         assert (ssd_scan_bwd.launches, expert_gemm_dx.launches) == before
 
 
+# the last three families at their published heads (H, KH, D; d_model =
+# H D), as tests/test_torch_families_heads.py builds them; their smoke
+# configs are at head_dim 64
+FAMILY_HEADS = {"gemma-2b": (8, 1, 256), "nemotron-4-340b": (12, 1, 192),
+                "qwen3-moe-235b-a22b": (16, 1, 128)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "qwen2-moe-a2.7b",
+                                  *FAMILY_HEADS])
 def test_new_families_train_through_their_kernels(cuda, arch):
     """One loss gradient of the smoke config through the kernels
     (attn_impl="pallas") against the plain path's, leaf by leaf, in f32:
-    summation order only."""
+    summation order only.  The last three families at their published
+    heads launch the LSE forward, dK/dV and dQ once a block (dK/dV as
+    many times as ``dkv_launches`` says)."""
     from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention_bwd import (
+        dkv_launches, flash_attention_dkv, flash_attention_dq,
+        flash_attention_lse)
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.models import api
     from repro_torch.models.params import tree_leaves
     cfg = get_smoke_config(arch).replace(attn_impl="pallas")
+    if arch in FAMILY_HEADS:
+        h, kh, d = FAMILY_HEADS[arch]
+        cfg = cfg.replace(num_heads=h, num_kv_heads=kh, head_dim=d,
+                          d_model=h * d)
     params = api.init_model(cfg, seed=0, device=cuda)
     toks = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
                          generator=torch.Generator(cuda).manual_seed(2))
     grads = {}
+    kernels = (flash_attention_lse, flash_attention_dkv, flash_attention_dq)
     for impl in ("pallas", "full"):
+        before = [f.launches for f in kernels]
         loss, _, g = value_and_grad(params, cfg.replace(attn_impl=impl),
                                     {"tokens": toks})
         grads[impl] = (float(loss), tree_leaves(g))
+        if impl == "pallas" and arch in FAMILY_HEADS:
+            torch.cuda.synchronize()
+            n = cfg.num_layers
+            assert [f.launches - b for f, b in zip(kernels, before)] == \
+                [n, n * dkv_launches(getattr(torch, cfg.dtype),
+                                     cfg.head_dim), n]
     assert abs(grads["pallas"][0] - grads["full"][0]) <= 1e-4
     for u, v in zip(grads["pallas"][1], grads["full"][1]):
         err = float((u - v).norm() / v.norm().clamp_min(1e-30))

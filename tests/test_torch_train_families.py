@@ -44,19 +44,42 @@ def _flat(tree, prefix=()):
     return {"/".join(prefix): tree}
 
 
-# (arch, tokens a document): mamba2-1.3b's smoke chunk is 64, so 96
-# tokens make two chunks, the second padded (dt = 0)
-@pytest.mark.parametrize("arch,seq", [("mamba2-1.3b", 96),
-                                      ("qwen2-moe-a2.7b", 48)])
-def test_family_inner_step_matches_reference(arch, seq):
+# (arch, tokens a document, published heads or None): mamba2-1.3b's
+# smoke chunk is 64, so 96 tokens make two chunks, the second padded
+# (dt = 0).  The last three families take their published heads (H, KH,
+# D; d_model = H D) as tests/test_torch_families_heads.py builds them,
+# so that the FlashAttention Function's backward runs at D 256, at D 192
+# with 12 query heads a KV head and at D 128 with 16
+@pytest.mark.parametrize("arch,seq,heads", [
+    pytest.param("mamba2-1.3b", 96, None, id="mamba2-1.3b-96"),
+    pytest.param("qwen2-moe-a2.7b", 48, None, id="qwen2-moe-a2.7b-48"),
+    pytest.param("gemma-2b", 48, (8, 1, 256), id="gemma-2b-48-heads"),
+    pytest.param("nemotron-4-340b", 48, (12, 1, 192),
+                 id="nemotron-4-340b-48-heads"),
+    pytest.param("qwen3-moe-235b-a22b", 48, (16, 1, 128),
+                 id="qwen3-moe-235b-a22b-48-heads")])
+def test_family_inner_step_matches_reference(arch, seq, heads):
     """W = 2 workers from different weights on different batches.  The
     loss agrees to 1e-6, AdamW's first moment ((1 - b1) g) to 1e-7 of
     absolute difference, the parameters to 1e-5 after a step of lr 1e-3,
     except where a gradient element is below 1e-6 (AdamW's first step is
     lr * g / (|g| + 1e-8), which turns such a gradient's f32 rounding into
-    up to lr of movement; there, under 1% of the elements, to lr)."""
-    jcfg = jsmoke(arch)
-    tcfg = tsmoke(arch).replace(attn_impl="pallas")
+    up to lr of movement; there, under 1% of the elements, to lr).
+
+    At the published heads most of the embedding's rows have a gradient
+    below 1e-6 (zero for a token no batch holds, or about 1e-14 under a
+    saturated softmax), 4.3% of all elements at gemma-2b's, 5.0% at
+    nemotron-4-340b's, 4.9% at qwen3-moe-235b-a22b's, so the 1% bound on
+    their count cannot hold there.  In its place these three cases bound
+    the elements that use the looser bar: under 1e-4 of all elements may
+    have a gradient below 1e-6 and move more than 1e-5 from the
+    reference's (1.7e-5, 1.7e-5 and 2.7e-5 of them do)."""
+    jcfg, tcfg = jsmoke(arch), tsmoke(arch)
+    if heads is not None:
+        h, kh, d = heads
+        jcfg, tcfg = (c.replace(num_heads=h, num_kv_heads=kh, head_dim=d,
+                                d_model=h * d) for c in (jcfg, tcfg))
+    tcfg = tcfg.replace(attn_impl="pallas")
     W, lr = 2, 1e-3
     base = _np(japi.init_model(jax.random.PRNGKey(0), jcfg)[0])
     rng = np.random.default_rng(4)
@@ -78,12 +101,18 @@ def test_family_inner_step_matches_reference(arch, seq):
     m, jmom = _flat(to_numpy_tree(tstate["m"])), _flat(_np(jopt["m"]))
     new, jn = _flat(to_numpy_tree(tnew)), _flat(_np(jnew))
     assert m.keys() == jmom.keys() == new.keys() == jn.keys()
-    tiny = 0
+    tiny = loose = 0
     for k in new:
         np.testing.assert_allclose(m[k], jmom[k], atol=1e-7, rtol=0,
                                    err_msg=k)
         g = np.minimum(np.abs(m[k]), np.abs(jmom[k])) / 0.1
         tol = np.where(g < 1e-6, lr, 1e-5)
+        diff = np.abs(new[k] - jn[k])
         tiny += int((g < 1e-6).sum())
-        assert (np.abs(new[k] - jn[k]) <= tol).all(), k
-    assert tiny <= 1e-2 * sum(x.size for x in new.values())
+        loose += int(((g < 1e-6) & (diff > 1e-5)).sum())
+        assert (diff <= tol).all(), k
+    size = sum(x.size for x in new.values())
+    if heads is None:
+        assert tiny <= 1e-2 * size, (tiny, size)
+    else:
+        assert loose <= 1e-4 * size, (tiny, loose, size)

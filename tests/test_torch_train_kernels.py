@@ -41,6 +41,8 @@ BWD_CASES = [
     (64, 4, 4, 32, False, None),
     (80, 2, 2, 32, True, None),     # ragged tail: s not a block multiple
     (64, 4, 2, 32, False, 16),      # non-causal sliding window + GQA
+    (40, 8, 1, 256, True, None),    # gemma-2b's heads, ragged
+    (48, 24, 2, 192, True, 16),     # nemotron-4-340b's G 12, windowed
 ]
 # f32: the same f32 arithmetic in another summation order
 TOL = 2e-5
