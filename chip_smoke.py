@@ -44,7 +44,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    launched once a chunk).  The loss must be finite and fall; every
    training kernel must launch as often as the path needs it.  One inner
    step's gradients through the kernels are compared with the plain
-   attention's, leaf by leaf, in f32 and bf16.
+   attention's, leaf by leaf, in f32 and bf16.  Then the dry-run
+   (``repro_torch.launch.dryrun.run_case``) of ``dipaco-150m`` at the
+   four input shapes on the 16x16 logical mesh, on meta tensors under a
+   fake process group (nothing on the card), each record printed and
+   ``ok``; phase 4's worker step time beside the share of the H100's
+   bf16 peak it reaches by the analytic ``total_flops`` of that step
+   (B8 S1024, remat) and by ``model_flops`` (6 N D); and one worker's
+   parameters + AdamW state as the meta trees predict them beside the
+   step's measured resident and peak memory.
 5. Serving the SSM and token-MoE families at full width and half their
    depth, in bf16 with ``attn_impl="pallas"``: ``mamba2-1.3b`` (24 of
    its 48 Mamba2 blocks, 4 paths) and ``qwen2-moe-a2.7b`` (12 of its 24
@@ -302,10 +310,12 @@ from repro_torch.kernels.moe_gmm import (expert_gemm, expert_gemm_dw,  # noqa: E
                                          expert_gemm_dx)
 from repro_torch.kernels.router_assign import router_assign  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
+from repro_torch.launch import dryrun, flopmodel, specs  # noqa: E402
 from repro_torch.launch.steps import (make_segment_scan_fn,  # noqa: E402
                                       value_and_grad)
 from repro_torch.models import api, encdec, moe_layer  # noqa: E402
-from repro_torch.models.config import DiPaCoConfig  # noqa: E402
+from repro_torch.models.config import (INPUT_SHAPES,  # noqa: E402
+                                       DiPaCoConfig, InputShape)
 from repro_torch.models.layers import torch_dtype  # noqa: E402
 from repro_torch.models.params import (LAYERS, param_axes,  # noqa: E402
                                        tree_leaves)
@@ -318,10 +328,10 @@ from repro_torch.serving import (PRIO_HIGH, PRIO_PREEMPTIBLE,  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth and
 # the rate for each input type (bf16 and TF32 on the tensor cores, f32
-# outside them)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
-                  "tf32": 495e12}
+# outside them), from their one home in the dry-run's roofline
+from repro_torch.launch.comm_analysis import (HBM_BYTES_PER_S,  # noqa: E402
+                                              PEAK_FLOPS_BF16,
+                                              PEAK_OPS_PER_S)
 # kernel vs plain version on the same inputs: both accumulate in f32, so
 # f32 differs only by summation order; a bf16 output may differ by one
 # bf16 rounding of values below 4 (2^-7 at most).  The SSD's f32 check is
@@ -2155,6 +2165,56 @@ FAMILY_TRAIN = (("mamba2-1.3b", flat_moe_config(2, inner_steps=2), 4, 24),
 FAMILY_TAU, FAMILY_PHASES, FAMILY_GRAD_DEPTH = 2, 2, 4
 # mamba2-1.3b's peak allocated memory at 24 blocks under the functional
 # inner step on the H100 (PERF.md section 5)
+def dryrun_phase(cfg, remat: dict) -> dict:
+    """The dry-run of ``cfg`` (``dryrun.run_case``) at the four input
+    shapes on the 16x16 logical mesh, on meta tensors (nothing on the
+    card; the outer step's gathers at train_4k), its records printed;
+    then phase 4's worker step (``remat_cost``: B8 S1024, remat, the
+    host-clock median between syncs) beside two shares of the H100's
+    bf16 peak, by the analytic ``total_flops`` of that step and by
+    ``model_flops`` (6 N D), and the predicted bytes of one worker's
+    parameters and AdamW state (from the meta shape trees) beside the
+    step's measured resident and peak memory (the train_4k record's bytes
+    a rank: one worker's tree whole)."""
+    records = [dryrun.run_case(cfg.name, name, multi_pod=False,
+                               with_outer=name == "train_4k")
+               for name in INPUT_SHAPES]
+    print(json.dumps({"dryrun_records": records}), flush=True)
+    for rec in records:
+        assert rec["ok"], rec.get("traceback")
+    shape = InputShape("phase4_step", DOC_LEN, TRAIN_BATCH, "train")
+    step = remat["remat"]
+    step_s = step["step_ms"] / 1e3
+    total = flopmodel.analyze(cfg, shape, num_workers=1).total_flops
+    model = specs.model_flops(cfg, shape)
+    rank = records[0]["memory"]["per_rank"]
+    predicted = (rank["params"] + rank["optimizer"]) / 2 ** 30
+    resident = step["peak_memory_gib"] - step["peak_above_resident_gib"]
+    out = {"records": [{k: r[k] for k in ("shape", "counted_flops",
+                                          "total_flops", "roofline",
+                                          "useful_flops_ratio")}
+                       for r in records],
+           "step_ms": step["step_ms"], "analytic_step_flops": total,
+           "model_step_flops": model,
+           "peak_share_analytic": total / step_s / PEAK_FLOPS_BF16,
+           "peak_share_model_flops": model / step_s / PEAK_FLOPS_BF16,
+           "predicted_params_adamw_gib": predicted,
+           "measured_resident_gib": resident,
+           "measured_peak_gib": step["peak_memory_gib"]}
+    print(f"[dryrun] phase 4's worker step {step['step_ms']:.2f} ms "
+          f"(B{TRAIN_BATCH} S{DOC_LEN}, remat): "
+          f"{out['peak_share_analytic']:.4f} of the bf16 peak by the "
+          f"analytic count ({total:.4g} FLOP), "
+          f"{out['peak_share_model_flops']:.4f} by 6 N D ({model:.4g})",
+          flush=True)
+    print(f"[dryrun memory] one worker's parameters + AdamW state "
+          f"predicted {predicted:.3f} GiB; the step measured "
+          f"{resident:.3f} GiB resident, {step['peak_memory_gib']:.3f} "
+          f"GiB peak", flush=True)
+    assert 0 < out["peak_share_analytic"] < 1, out
+    return out
+
+
 MAMBA_24_BLOCK_PEAK_GIB = 60.39
 
 
@@ -4390,6 +4450,11 @@ def main() -> int:
     free_memory()
     phase_s["train dipaco-150m"] = time.perf_counter() - t0
     print(f"[phase] train dipaco-150m: {phase_s['train dipaco-150m']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    trained["dryrun"] = dryrun_phase(cfg.replace(route_prefix_len=32),
+                                     trained["remat_cost"])
+    phase_s["dryrun"] = time.perf_counter() - t0
+    print(f"[phase] dryrun: {phase_s['dryrun']:.1f} s", flush=True)
 
     families = {}
     for name, num_paths, depth, tols, prompt_len, batch, f32_depth in \

@@ -8,10 +8,13 @@ from __future__ import annotations
 
 import importlib
 
-ALL_CONFIGS = ["qwen3-moe-235b-a22b", "gemma-2b", "whisper-base",
-               "jamba-v0.1-52b", "mamba2-1.3b", "pixtral-12b", "qwen3-8b",
-               "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "nemotron-4-340b",
-               "dipaco-150m", "dipaco-dense-1b"]
+ASSIGNED_ARCHS = ["qwen3-moe-235b-a22b", "gemma-2b", "whisper-base",
+                  "jamba-v0.1-52b", "mamba2-1.3b", "pixtral-12b", "qwen3-8b",
+                  "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "nemotron-4-340b"]
+
+PAPER_CONFIGS = ["dipaco-150m", "dipaco-dense-1b"]
+
+ALL_CONFIGS = ASSIGNED_ARCHS + PAPER_CONFIGS
 
 
 def _module(name: str):

@@ -112,11 +112,11 @@ class DiPaCoTrainer:
     @classmethod
     def resume(cls, cfg, dcfg, dataset, *, ckpt_root=None, **kw):
         """The in-memory trainer keeps no durable state to resume from;
-        the checkpointed backends ("barrier", "service") do."""
+        the checkpointed backends ("barrier", "service") and the mesh
+        backend (phase-state files) do."""
         raise NotImplementedError(
-            "DiPaCoTrainer is in-memory only and cannot resume; train with "
-            "make_trainer(backend='barrier' or 'service', ckpt_root=...) "
-            "and resume that")
+            "DiPaCoTrainer is in-memory only and cannot resume; use "
+            "make_trainer(..., backend='barrier'|'service'|'mesh')")
 
     # ------------------------------------------------------------------
     def _outer(self):

@@ -1,10 +1,10 @@
 """Dispatch of the kernels by the device of their tensors.
 
-A CPU tensor goes to the plain version in ``ref.py``.  A CUDA tensor
-goes to the hand-written kernel, which launches or raises: nothing falls
-back.  The model calls the attention entries, ``ssd_scan`` and
-``expert_gemm`` when ``cfg.attn_impl == 'pallas'``; k-means calls
-``router_assign``.
+A CPU tensor goes to the plain version in ``ref.py``, and so does a meta
+tensor (the dry-run's shapes).  A CUDA tensor goes to the hand-written
+kernel, which launches or raises: nothing falls back.  The model calls
+the attention entries, ``ssd_scan`` and ``expert_gemm`` when
+``cfg.attn_impl == 'pallas'``; k-means calls ``router_assign``.
 
 Where an input requires a gradient, ``flash_attention``, ``ssd_scan`` and
 ``expert_gemm`` go through their autograd Functions (``FlashAttention``,
@@ -22,7 +22,13 @@ from . import ref
 
 
 def _device_type(t) -> str:
+    """-> "cuda" (the kernel) or "cpu" (the plain version).  A meta
+    tensor (the dry-run's, ``launch/dryrun.py``) takes the plain version
+    as a CPU one does: that is shape propagation, not a fallback, since
+    a meta tensor holds no data for a kernel to read."""
     kind = t.device.type
+    if kind == "meta":
+        return "cpu"
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {t.device}")
     return kind

@@ -18,6 +18,7 @@ never destroys a group it did not make.
 from __future__ import annotations
 
 import atexit
+import math
 from dataclasses import dataclass
 
 import torch
@@ -65,6 +66,31 @@ class WorkerMesh:
     def rows(self) -> range:
         n = self.rows_per_rank
         return range(self.rank * n, (self.rank + 1) * n)
+
+
+@dataclass(frozen=True)
+class LogicalMesh:
+    """A device mesh known only by its axes and their sizes: what the
+    dry-run (``launch/specs.py``, ``launch/dryrun.py``) lays its specs
+    over.  It holds no device and no process group."""
+
+    axis_names: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
+    """16x16 = 256 devices a pod; multi_pod adds a leading 2-pod axis."""
+    if multi_pod:
+        return LogicalMesh(("pod", "data", "model"), (2, 16, 16))
+    return LogicalMesh(("data", "model"), (16, 16))
 
 
 def make_worker_mesh(num_workers: int, *, device="cuda") -> WorkerMesh:

@@ -56,6 +56,8 @@ def main(argv=None) -> None:
                          "size); not whisper-base, an encoder-decoder")
     ap.add_argument("--engine", choices=["oneshot", "continuous"],
                     default="oneshot")
+    ap.add_argument("--continuous", action="store_true",
+                    help="deprecated alias for --engine continuous")
     ap.add_argument("--paths", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -92,6 +94,7 @@ def main(argv=None) -> None:
                     help="fleet members as OS processes (default) or "
                          "in this process (debugging)")
     args = ap.parse_args(argv)
+    engine_kind = "continuous" if args.continuous else args.engine
     if args.fleet and not args.deploy_root:
         ap.error("--fleet requires --deploy-root (fleet members "
                  "rendezvous on the registry's SERVING pointer)")
@@ -147,7 +150,7 @@ def main(argv=None) -> None:
         print(f"[serve] member versions {versions}")
         print(f"[serve] request->path: {[f.path for f in fins]}")
         return
-    if args.engine == "continuous":
+    if engine_kind == "continuous":
         engine = ContinuousBatchingEngine(cfg, paths, options=opts)
         engine.warmup()
         t0 = time.time()

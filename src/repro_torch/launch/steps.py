@@ -1,7 +1,8 @@
 """DiPaCo step builders (stacked-worker formulation); the port of
-``repro/launch/steps.py``: the inner and synchronous train steps, and
-the streaming mesh phase whose fragment reduces run as collectives over
-the ranks of a ``launch.mesh.WorkerMesh``.
+``repro/launch/steps.py``: the inner and synchronous train steps, the
+streaming mesh phase whose fragment reduces run as collectives over the
+ranks of a ``launch.mesh.WorkerMesh``, the prefill and decode steps, and
+the dry-run's shape trees on the meta device.
 
 Worker trees hold (W, ...) leaves.  The reference ``vmap``s one worker's
 step over W; here a Python loop walks the workers, because
@@ -18,8 +19,39 @@ import torch.distributed as dist
 
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.layers import torch_dtype
+from repro_torch.models.params import (param_axes, param_shapes, tree_leaves,
+                                       tree_map, tree_unflatten)
 from repro_torch.optim import adamw_update_
+
+
+# ---------------------------------------------------------------------------
+# Shape trees on the meta device (no allocation, safe for 340B)
+# ---------------------------------------------------------------------------
+def model_param_shapes(cfg: ModelConfig):
+    """(shapes, axes): ``init_model(cfg)``'s tree as meta tensors of its
+    shapes and dtypes, from the shape rules of ``params.param_axes``
+    (``init_model`` draws from a generator, and there is no meta one)."""
+    dtype = torch_dtype(cfg.dtype)
+    shapes = tree_map(lambda s: torch.empty(s, dtype=dtype, device="meta"),
+                      param_shapes(cfg))
+    return shapes, param_axes(cfg)
+
+
+def worker_param_shapes(cfg: ModelConfig, num_workers: int):
+    """``model_param_shapes`` stacked over a leading worker axis."""
+    shapes, axes = model_param_shapes(cfg)
+    return tree_map(lambda s: s.new_empty((num_workers, *s.shape)),
+                    shapes), axes
+
+
+def adamw_state_shapes(param_shapes):
+    """``adamw_init``'s state for ``param_shapes``, on the meta device."""
+    return {"m": tree_map(lambda s: torch.empty_like(s, dtype=torch.float32),
+                          param_shapes),
+            "v": tree_map(lambda s: torch.empty_like(s, dtype=torch.float32),
+                          param_shapes),
+            "count": torch.empty((), dtype=torch.int32, device="meta")}
 
 
 def row(tree, i: int):
@@ -39,7 +71,7 @@ def value_and_grad(params, cfg: ModelConfig, batch) -> tuple:
 
 
 def _worker_batch(batch, w: int) -> dict:
-    return {k: v[w] for k, v in batch.items()}
+    return tree_map(lambda x: x[w], batch)
 
 
 def _stack_metrics(metrics: list) -> dict:
@@ -254,3 +286,39 @@ def make_streaming_mesh_phase(cfg: ModelConfig, mesh, axes, fragspec, *,
                 torch.cat(losses, 0))
 
     return phase
+
+
+# ---------------------------------------------------------------------------
+# Serving steps
+# ---------------------------------------------------------------------------
+def make_prefill_step(cfg: ModelConfig):
+    """Forward scoring over stacked workers: ``(worker_params, batch) ->
+    logits (W, b, S, V)`` for a batch dict of (W, b, ...) tensors."""
+    def step(worker_params, batch):
+        return torch.stack([
+            api.forward_logits(row(worker_params, w), cfg,
+                               _worker_batch(batch, w))[0]
+            for w in range(batch["tokens"].shape[0])])
+
+    return step
+
+
+def make_decode_step(cfg: ModelConfig, *, window=None, stacked: bool = True):
+    """One-token decode, ``(params, batch, cache, index) -> (logits,
+    cache)``; ``stacked=False`` for a single path (long context).  The
+    stacked step walks the workers, each decoding into its row of the
+    (W, ...) caches in place."""
+    def one(params, batch, cache, index):
+        return api.serve_step(params, cfg, batch, cache, index,
+                              window=window)
+
+    if not stacked:
+        return one
+
+    def step(worker_params, batch, caches, index):
+        logits = [one(row(worker_params, w), _worker_batch(batch, w),
+                      row(caches, w), index)[0]
+                  for w in range(batch["tokens"].shape[0])]
+        return torch.stack(logits), caches
+
+    return step

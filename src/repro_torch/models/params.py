@@ -20,7 +20,10 @@ ParamTree = Any  # nested dict[str, ParamTree | torch.Tensor]
 AxisTree = Any   # same structure, leaves: tuple[str | None, ...]
 
 # logical axis names of the reference (repro/models/params.py)
+WORKER = "worker"       # DiPaCo path-worker (island) axis
 LAYERS = "layers"       # stacked layer axis
+BATCH = "batch"
+SEQ = "seq"
 EMBED = "embed"
 HEADS = "heads"
 KV_HEADS = "kv_heads"
@@ -32,11 +35,6 @@ EXPERT_MLP = "expert_mlp"
 SSM_INNER = "ssm_inner"
 SSM_STATE = "ssm_state"
 CONV = "conv"
-
-_MAMBA_AXES = {
-    "in_proj": (EMBED, SSM_INNER), "conv_w": (CONV, SSM_INNER),
-    "conv_b": (SSM_INNER,), "dt_bias": (HEADS,), "A_log": (HEADS,),
-    "D": (HEADS,), "norm": (SSM_INNER,), "out_proj": (SSM_INNER, EMBED)}
 
 
 def tree_map(fn, tree, *rest):
@@ -65,55 +63,104 @@ def tree_map_with_axes(fn, params: ParamTree, axes: AxisTree):
     return tree_map(fn, params, axes)
 
 
+def _layout(cfg):
+    """Every leaf of ``init_model(cfg)`` as a tuple of (logical axis,
+    size) pairs, one a dimension: the shape rules of the reference's
+    ``init_*``.  Layer leaves carry ``LAYERS`` first."""
+    d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn = {"wq": ((EMBED, d), (HEADS, h), (HEAD_DIM, hd)),
+            "wk": ((EMBED, d), (KV_HEADS, kh), (HEAD_DIM, hd)),
+            "wv": ((EMBED, d), (KV_HEADS, kh), (HEAD_DIM, hd)),
+            "wo": ((HEADS, h), (HEAD_DIM, hd), (EMBED, d))}
+    if cfg.qk_norm:
+        attn["q_norm"] = ((HEAD_DIM, hd),)
+        attn["k_norm"] = ((HEAD_DIM, hd),)
+
+    def mlp(f):
+        out = {"w_up": ((EMBED, d), (MLP, f)),
+               "w_down": ((MLP, f), (EMBED, d))}
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            out = {"w_gate": ((EMBED, d), (MLP, f)), **out}
+        return out
+
+    moe = None
+    if cfg.moe is not None:
+        m = cfg.moe
+        e, fe = m.num_experts, m.d_ff_expert
+        moe = {"router": ((EMBED, d), (EXPERT, e)),
+               "w_gate": ((EXPERT, e), (EMBED, d), (EXPERT_MLP, fe)),
+               "w_up": ((EXPERT, e), (EMBED, d), (EXPERT_MLP, fe)),
+               "w_down": ((EXPERT, e), (EXPERT_MLP, fe), (EMBED, d))}
+        if m.num_shared > 0:
+            moe["shared"] = mlp(m.d_ff_shared or m.num_shared * fe)
+    mamba = None
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        d_inner = s.expand * d
+        heads = d_inner // s.head_dim
+        conv_dim = d_inner + 2 * s.n_groups * s.d_state
+        proj_out = 2 * d_inner + 2 * s.n_groups * s.d_state + heads
+        mamba = {"in_proj": ((EMBED, d), (SSM_INNER, proj_out)),
+                 "conv_w": ((CONV, s.conv_width), (SSM_INNER, conv_dim)),
+                 "conv_b": ((SSM_INNER, conv_dim),),
+                 "dt_bias": ((HEADS, heads),), "A_log": ((HEADS, heads),),
+                 "D": ((HEADS, heads),), "norm": ((SSM_INNER, d_inner),),
+                 "out_proj": ((SSM_INNER, d_inner), (EMBED, d))}
+    norm = ((EMBED, d),)
+
+    def stacked(tree, n):
+        return tree_map(lambda dims: ((LAYERS, n), *dims), tree)
+
+    embed = {"embedding": ((VOCAB, cfg.vocab_size), (EMBED, d))}
+    if not cfg.tie_embeddings:
+        embed["unembed"] = ((EMBED, d), (VOCAB, cfg.vocab_size))
+    if cfg.encoder is not None:
+        enc = {"norm1": norm, "attn": attn, "norm2": norm,
+               "mlp": mlp(cfg.d_ff)}
+        dec = {"norm1": norm, "self_attn": attn, "norm_x": norm,
+               "cross_attn": attn, "norm2": norm, "mlp": mlp(cfg.d_ff)}
+        return {"embed": embed,
+                "src_proj": ((None, cfg.encoder.d_source), (EMBED, d)),
+                "enc": stacked(enc, cfg.encoder.num_layers),
+                "dec": stacked(dec, cfg.num_layers),
+                "enc_norm": norm, "final_norm": norm}
+    mixers = {"attn": attn, "mamba": mamba}
+    mlps = {"dense": mlp(cfg.d_ff), "moe": moe}
+    blocks = {}
+    for i, spec in enumerate(cfg.pattern):
+        block = {"norm1": norm, "mixer": mixers[spec.mixer]}
+        if spec.mlp != "none":
+            block["norm2"] = norm
+            block["mlp"] = mlps[spec.mlp]
+        blocks[f"pos{i}"] = stacked(block, cfg.pattern_repeats)
+    layout = {"embed": embed, "blocks": blocks, "final_norm": norm}
+    if cfg.vision is not None:
+        layout["patch_proj"] = ((None, cfg.vision.d_patch), (EMBED, d))
+    return layout
+
+
+def tree_axes_flatten(params: ParamTree, axes: AxisTree, prefix=()) -> list:
+    """-> [(path, leaf, axes)] in the tree's order."""
+    if isinstance(params, dict):
+        return [x for k in params
+                for x in tree_axes_flatten(params[k], axes[k], prefix + (k,))]
+    return [(prefix, params, axes)]
+
+
 def param_axes(cfg) -> AxisTree:
     """The logical axes of every leaf of ``init_model(cfg)``, as the
     reference's ``init_model`` returns them: layer leaves carry
     ``LAYERS`` first.  Attention and Mamba mixers, dense and MoE MLPs
     (with the MoE's ``shared`` MLP), the VLM's ``patch_proj`` and the
     encoder-decoder's tree, as the reference's ``init_*``."""
-    attn = {"wq": (EMBED, HEADS, HEAD_DIM), "wk": (EMBED, KV_HEADS, HEAD_DIM),
-            "wv": (EMBED, KV_HEADS, HEAD_DIM), "wo": (HEADS, HEAD_DIM, EMBED)}
-    if cfg.qk_norm:
-        attn["q_norm"] = (HEAD_DIM,)
-        attn["k_norm"] = (HEAD_DIM,)
-    if cfg.mlp_type in ("swiglu", "geglu"):
-        mlp = {"w_gate": (EMBED, MLP), "w_up": (EMBED, MLP),
-               "w_down": (MLP, EMBED)}
-    else:
-        mlp = {"w_up": (EMBED, MLP), "w_down": (MLP, EMBED)}
-    moe = None
-    if cfg.moe is not None:
-        moe = {"router": (EMBED, EXPERT),
-               "w_gate": (EXPERT, EMBED, EXPERT_MLP),
-               "w_up": (EXPERT, EMBED, EXPERT_MLP),
-               "w_down": (EXPERT, EXPERT_MLP, EMBED)}
-        if cfg.moe.num_shared > 0:
-            moe["shared"] = mlp
-    mixers = {"attn": attn, "mamba": _MAMBA_AXES}
-    mlps = {"dense": mlp, "moe": moe}
-    blocks = {}
-    for i, spec in enumerate(cfg.pattern):
-        block = {"norm1": (EMBED,), "mixer": mixers[spec.mixer]}
-        if spec.mlp != "none":
-            block["norm2"] = (EMBED,)
-            block["mlp"] = mlps[spec.mlp]
-        blocks[f"pos{i}"] = tree_map(lambda ax: (LAYERS, *ax), block)
-    embed = {"embedding": (VOCAB, EMBED)}
-    if not cfg.tie_embeddings:
-        embed["unembed"] = (EMBED, VOCAB)
-    if cfg.encoder is not None:
-        enc = {"norm1": (EMBED,), "attn": attn, "norm2": (EMBED,),
-               "mlp": mlp}
-        dec = {"norm1": (EMBED,), "self_attn": attn, "norm_x": (EMBED,),
-               "cross_attn": attn, "norm2": (EMBED,), "mlp": mlp}
-        return {"embed": embed, "src_proj": (None, EMBED),
-                "enc": tree_map(lambda ax: (LAYERS, *ax), enc),
-                "dec": tree_map(lambda ax: (LAYERS, *ax), dec),
-                "enc_norm": (EMBED,), "final_norm": (EMBED,)}
-    axes = {"embed": embed, "blocks": blocks, "final_norm": (EMBED,)}
-    if cfg.vision is not None:
-        axes["patch_proj"] = (None, EMBED)
-    return axes
+    return tree_map(lambda dims: tuple(a for a, _ in dims), _layout(cfg))
+
+
+def param_shapes(cfg):
+    """The shape of every leaf of ``init_model(cfg)`` (a tree of int
+    tuples beside ``param_axes``), computed without drawing anything:
+    the dry-run's meta trees are built from it."""
+    return tree_map(lambda dims: tuple(n for _, n in dims), _layout(cfg))
 
 
 def _leaf_to_torch(x, device: torch.device) -> torch.Tensor:

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_fragments
 from repro import configs as jcfgs
 from repro.data import SyntheticCorpus as JCorpus
 from repro.models import api as japi
@@ -18,6 +19,15 @@ from repro_torch.models import api as tapi
 from repro_torch.models.params import from_numpy_tree, to_numpy_tree
 
 ROOT = Path(__file__).resolve().parents[1]
+
+# JAX starts its CPU backend on a process's first array op (about 0.25 s)
+# and compiles each op again for each new shape (10-20 ms each, three
+# times that on a loaded machine). Collection imports this module in every
+# pytest process, so that start and the compiles of test_fragments.py's
+# input trees are paid here, once, and not inside the first example of its
+# hypothesis tests, which have hypothesis's 200 ms deadline. The code
+# those tests check compiles nothing here: only their inputs are made.
+test_fragments._tree()
 
 
 def _np_tree(tree):
@@ -176,11 +186,21 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_ops_reject_other_devices():
+    """A tensor on neither the CPU nor a card (an XPU stand-in: this
+    build can make no such tensor) has no kernel; a meta tensor, the
+    dry-run's, takes the plain version's shapes."""
     from repro_torch.kernels import ops
-    q = torch.zeros(1, 4, 2, 32, device="meta")
+
+    class OnXpu:
+        device = torch.device("xpu")
+        requires_grad = False
+
+    meta = torch.zeros(1, 4, 2, 32, device="meta")
+    assert ops.flash_attention(meta, meta, meta).device.type == "meta"
+    q = OnXpu()
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.flash_attention_trainable(q, q, q)
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.router_assign(q[0, 0], q[0, 0])
+        ops.router_assign(q, q)

@@ -289,11 +289,21 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_ops_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         expert_gemm(x[0], x[0].transpose(1, 2).contiguous())
     assert ssd_scan.launches == 0 and expert_gemm.launches == 0
+    # a meta tensor (the dry-run's) takes the plain version's shapes; a
+    # tensor on another device (an XPU stand-in: this build can make no
+    # such tensor) has no kernel
     meta = torch.zeros(2, 4, 8, device="meta")
+    assert ops.expert_gemm(meta, meta.transpose(1, 2)).shape == (2, 4, 4)
+
+    class OnXpu:
+        device = torch.device("xpu")
+        requires_grad = False
+
+    other = OnXpu()
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.expert_gemm(meta, meta)
+        ops.expert_gemm(other, other)
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.ssd_scan(x.to("meta"), dt, torch.zeros(2), bm, bm, chunk=4)
+        ops.ssd_scan(other, dt, torch.zeros(2), bm, bm, chunk=4)
 
 
 def test_cpu_ops_stay_differentiable():

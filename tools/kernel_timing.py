@@ -28,7 +28,19 @@ import subprocess
 import sys
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
+
+
+def h100_peaks():
+    """The card's peaks from their one home, this checkout's
+    ``src/repro_torch/launch/comm_analysis.py``, loaded by its path so
+    that ``--src`` may name an older tree."""
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / \
+        "src/repro_torch/launch/comm_analysis.py"
+    spec = importlib.util.spec_from_file_location("_h100_peaks", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def time_ms(torch, fn, iters: int = 50) -> float:
@@ -119,6 +131,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import flash_decode
     from repro_torch.kernels.router_assign import router_assign
+    HBM_BYTES_PER_S = h100_peaks().HBM_BYTES_PER_S
 
     if not torch.cuda.is_available():
         print("kernel_timing: no CUDA device", file=sys.stderr)
