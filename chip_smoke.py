@@ -236,6 +236,39 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    S1024 H64 KH4 D128) and at ragged, windowed edges of D 192 and 256,
    and the expert GEMM at E128 d4096 f1536.
 
+12. Algorithm 1 and the paper's variants at full width (``dipaco-150m``,
+   bf16, remat, ``attn_impl="pallas"``), through the port's examples.
+   (a) ``repro_torch.examples.train_dipaco.run`` at ``--preset paper``:
+   2048 documents of 256 tokens, k-means into a 2x2 DiPaCo, batch 8, 4
+   phases of tau 4, early stopping, a worker-stacked dump each phase
+   under ``/dev/shm`` (removed; fails above 10 GB), and the
+   discriminative re-shard after the second phase.  Every shard after
+   it must be non-empty; ``score_documents`` at the re-shard must agree
+   with the plain attention's within phase 2's bf16 bar a scored token
+   (an argmax may differ only where the top two are closer); the phases'
+   mean loss must fall from the first to the second, and the held-out
+   loss on the new shards from the third to the fourth;
+   ``path_params(p, best=True)`` must equal, bit for bit, its worker's
+   parameters after its best phase, and the last dump, read back, the
+   workers' parameters; the LSE forward, dK/dV, dQ, flash attention and
+   ``router_assign`` must launch exactly as the run needs; the best
+   paths are evaluated re-routed once a sequence, every 16 and every 8
+   tokens by the re-shard's router.  (b) From (a)'s documents and base
+   weights, 2 phases of tau 4 each, one trainer at a time: DiLoCo on 4
+   uniform shards, flat MoE on (a)'s k-means shards, a path-specific
+   second level, the synchronous trainer of §4.5, a 2x2 on product
+   k-means shards (``router_assign`` at D 448 and K 2) and flat MoE on
+   top-2 overlapping shards.  Each loss must fall, the attention kernels
+   launch as the steps need, and workers that share a module hold it
+   bit for bit after every outer step (the sync trainer: their mixed
+   gradients at every step); phase seconds, peak memory and routed PPL
+   beside (a)'s are printed.  (c) ``quickstart``, ``serve_paths``,
+   ``train_and_serve`` (its registry under ``/dev/shm``) and
+   ``multiarch_smoke`` over all twelve configs at their scripts' sizes:
+   each must end, the two that serve must launch flash decode,
+   ``train_and_serve`` must swap and roll back, and every
+   architecture's loss must fall.
+
 ``python3 chip_smoke.py --service-probe`` runs phase 4's pipeline and a
 probe of the stale service's loss (the vector trainer and the service
 on one thread at lag 0, at lag 1 and at lag 1 without outer momentum,
@@ -247,7 +280,8 @@ phase 8, then phase 8's barrier and planted faults at 12 blocks.  At
 them.  ``python3 chip_smoke.py --deploy`` runs phase 4's pipeline and
 then phase 9 alone, ``python3 chip_smoke.py --mesh`` phase 4's pipeline
 and then phase 10 alone, ``python3 chip_smoke.py --families`` phase 2
-and then phase 11 alone.
+and then phase 11 alone, ``python3 chip_smoke.py --examples`` phase 12
+alone after the build.
 
 It prints one ``{"kernels": [...]}`` line before the card's line, with
 the backward kernels' rows too, and the last line is ``{"ok": true,
@@ -260,6 +294,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import datetime
+import functools
 import gc
 import json
 import multiprocessing as mp
@@ -282,7 +317,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import make_trainer  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ALL_CONFIGS, get_config  # noqa: E402
 from repro_torch.core import pytree  # noqa: E402
 from repro_torch.core.diloco import (fragment_state_init,  # noqa: E402
                                      segmented_streaming_phase)
@@ -291,7 +326,9 @@ from repro_torch.core.module_store import ModuleStore  # noqa: E402
 from repro_torch.core.routing import (DiscriminativeRouter,  # noqa: E402
                                       KMeansRouter, evaluate_rerouted,
                                       kmeans_assign, kmeans_fit,
-                                      prefix_features)
+                                      prefix_features, product_kmeans_assign,
+                                      product_kmeans_fit, score_documents,
+                                      topn_assign)
 from repro_torch.data import SyntheticCorpus, shard_documents  # noqa: E402
 from repro_torch.deploy import (CanaryGate, DeploymentRegistry,  # noqa: E402
                                 Publisher)
@@ -303,16 +340,20 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
     attention_delta, dkv_launches, flash_attention_dkv, flash_attention_dq,
     flash_attention_lse)
-from repro_torch.core.dipaco import (diloco_config,  # noqa: E402
-                                     flat_moe_config, stack_tree)
+from repro_torch.core.dipaco import (SyncDiPaCoTrainer,  # noqa: E402
+                                     diloco_config, flat_moe_config,
+                                     mean_nll, stack_tree)
 from repro_torch.data.loader import phase_batches  # noqa: E402
+from repro_torch.examples import (multiarch_smoke, quickstart,  # noqa: E402
+                                  serve_paths, train_and_serve, train_dipaco)
 from repro_torch.kernels.moe_gmm import (expert_gemm, expert_gemm_dw,  # noqa: E402
                                          expert_gemm_dx)
 from repro_torch.kernels.router_assign import router_assign  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
 from repro_torch.launch import dryrun, flopmodel, specs  # noqa: E402
+from repro_torch.launch import steps as launch_steps  # noqa: E402
 from repro_torch.launch.steps import (make_segment_scan_fn,  # noqa: E402
-                                      value_and_grad)
+                                      row, value_and_grad)
 from repro_torch.models import api, encdec, moe_layer  # noqa: E402
 from repro_torch.models.config import (INPUT_SHAPES,  # noqa: E402
                                        DiPaCoConfig, InputShape)
@@ -320,6 +361,7 @@ from repro_torch.models.layers import torch_dtype  # noqa: E402
 from repro_torch.models.params import (LAYERS, param_axes,  # noqa: E402
                                        tree_leaves)
 from repro_torch.optim import adamw_init, adamw_update_  # noqa: E402
+from repro_torch.optim.adamw import global_norm  # noqa: E402
 from repro_torch.obs import Telemetry, read_trace  # noqa: E402
 from repro_torch.serving import (PRIO_HIGH, PRIO_PREEMPTIBLE,  # noqa: E402
                                  ContinuousBatchingEngine, EngineOptions,
@@ -862,15 +904,21 @@ def assign_flips(z, c, a, pa, tol_rel: float = 1e-5) -> tuple:
     return int(differ.sum()), int(wrong.sum())
 
 
+# phase 12's assignments: product k-means' halves (its 2048 documents,
+# half of d_model, 2 centroids a half) and the validation documents
+# against the 4 centroids (256 of them)
+ALG1_ASSIGN = ((2048, 448, 2), (256, 896, 4))
+
+
 def check_router_assign(gen) -> dict:
     # (N, D, K): ragged N, the paper's table (one centroid tile of 256),
     # the training phase's features (2048 documents, d_model, K = 4),
-    # then the edges of the tensor-core
+    # phase 12's shapes (ALG1_ASSIGN), then the edges of the tensor-core
     # tiling: K 1, K 257 (two tiles of 192), D 36 (f32 on TMA, bf16 on the
     # CUDA cores), D 50 (the CUDA-core kernel in both types), N 131 K 33
     cases = [(513, 32, 8), (65536, 896, 256), (DOCS, 896, TRAIN_PATHS),
              (777, 896, 1), (1000, 128, 257), (333, 36, 24), (200, 50, 40),
-             (131, 64, 33)]
+             (131, 64, 33), *ALG1_ASSIGN]
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for n, d, k in cases:
@@ -894,7 +942,8 @@ def check_router_assign(gen) -> dict:
             "replaces": "src/repro/kernels/router_assign.py:29",
             "launches": None, **main,
             "library_call": "torch.cdist + argmin",
-            "long": ra_timings(gen, 65536, 896, 256), "cases": rows}
+            "long": ra_timings(gen, 65536, 896, 256),
+            "product_kmeans": ra_timings(gen, *ALG1_ASSIGN[0]), "cases": rows}
 
 
 def ra_timings(gen, n, d, k) -> dict:
@@ -4331,6 +4380,512 @@ def families11() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: Algorithm 1 and the paper's variants at full width
+# ---------------------------------------------------------------------------
+# the device of phase 12 (tests/test_torch_chip_phase12.py rehearses it on
+# the CPU at the smoke size; on the card the launch counts are checked too)
+DEV12 = "cuda"
+# (a) ``repro_torch.examples.train_dipaco`` at ``--preset paper``
+# (dipaco-150m, bf16, remat, attn_impl="pallas" on the card; 2048
+# documents of 256 tokens, levels 2x2, batch 8, its 256 router and 256
+# validation documents), 4 phases of tau 4 (the preset's 100 is for real
+# runs); (b) each variant 4 workers of batch 8, 2 phases of tau 4
+ALG1_DOCS, ALG1_PHASES, ALG1_TAU, ALG1_BATCH = 2048, 4, 4, 8
+VARIANT_PHASES = 2
+# (a)'s worker-stacked dumps and (c)'s registry go to memory, not to the
+# machine's disk, whose 45 GiB of writes phases 8 and 9 nearly use up;
+# (a)'s four dumps of 4 workers' bf16 weights are about 4.6 GB
+SHM12 = "/dev/shm"
+ALG1_DUMP_CAP_GB = 10.0
+# Table 3's protocol on (a)'s best paths: re-route once per sequence
+# (None: every = the documents' length), every 16 and every 8 tokens
+REROUTE12 = (None, 16, 8)
+# workers that share a module must hold it bit for bit after every outer
+# step, and get the same bits of its mixed gradient at every step of the
+# sync trainer: the same mixing row and the same inputs give the same
+# bits; tests/test_torch_examples.py shows both packages hold it so on
+# the CPU
+# (c) the other four examples at their scripts' sizes, and
+# multiarch_smoke over all twelve configs
+EXAMPLES12 = {"quickstart": {}, "serve_paths": {}, "train_and_serve": {},
+              "multiarch_smoke": {"archs": ALL_CONFIGS}}
+
+
+def sharing_mismatch(worker_params, axes, mix_layers, mix_shared) -> dict:
+    """Every module that two workers share (a nonzero mixing weight
+    between them: ``mix_layers[r, w, v]`` for repeat r of a layer leaf,
+    ``mix_shared[w, v]`` for the other leaves) compared between the two:
+    -> {"pairs": modules compared, "elements", "differ": elements that
+    differ, "max_bf16_ulps": the largest difference in bf16 ulps of the
+    larger value}."""
+    R = mix_layers.shape[0]
+    ml = (torch.as_tensor(mix_layers) != 0).cpu()
+    ms = (torch.as_tensor(mix_shared) != 0).cpu()
+    out = {"pairs": 0, "elements": 0, "differ": 0, "max_bf16_ulps": 0.0}
+
+    def compare(a, b):
+        out["pairs"] += 1
+        out["elements"] += a.numel()
+        d = a != b
+        n = int(d.sum())
+        if n:
+            af, bf = a[d].float(), b[d].float()
+            ulp = torch.exp2(torch.floor(torch.log2(
+                torch.maximum(af.abs(), bf.abs()))) - 7)
+            out["differ"] += n
+            out["max_bf16_ulps"] = max(out["max_bf16_ulps"], float(
+                ((af - bf).abs() / ulp).max()))
+
+    def leaf(x, ax):
+        layer = bool(ax) and ax[0] == LAYERS and x.ndim >= 2 \
+            and x.shape[1] == R
+        for w in range(x.shape[0]):
+            for v in range(w + 1, x.shape[0]):
+                if layer:
+                    for r in range(R):
+                        if ml[r, w, v]:
+                            compare(x[w, r], x[v, r])
+                elif ms[w, v]:
+                    compare(x[w], x[v])
+
+    pytree.tree_map(leaf, worker_params, axes,
+                    is_leaf=lambda x: isinstance(x, tuple))
+    return out
+
+
+def forward_calls(n: int, batch: int) -> int:
+    return -(-n // batch)
+
+
+def alg1_forwards(out) -> int:
+    """The no-grad forwards of ``train_dipaco.run`` (flash attention
+    launches once a block in each): the routing features of the
+    documents (batches of 64), every phase's holdout losses (the first
+    64 of each worker's holdout, batches of 32; the new shards' after the
+    re-shard), ``score_documents`` (every path, batches of 32), the
+    router's and the validation documents' features, and the routed
+    evaluation (each path's documents, batches of 32)."""
+    tr = out["trainer"]
+
+    def holdouts(ds):
+        return sum(forward_calls(min(len(h), 64), 32) for h in ds.holdouts)
+
+    cut = out["reshard_phase"] + 1
+    n = forward_calls(len(out["docs"]), 64)
+    n += cut * holdouts(out["dataset"])
+    n += (len(out["phases"]) - cut) * holdouts(tr.dataset)
+    n += tr.partition.num_paths * forward_calls(len(out["router_docs"]), 32)
+    n += forward_calls(len(out["router_docs"]), 64)
+    n += forward_calls(len(out["val"]), 64)
+    n += sum(forward_calls(int(c), 32) for c in np.bincount(out["val_assign"]))
+    return n
+
+
+def alg1_losses(out, kept) -> dict:
+    """Every phase's mean training loss finite, falling from the first
+    phase to the second; and the loss on the new shards falling from the
+    third phase to the fourth: each worker's held-out loss on its new
+    shard's holdout (the documents early stopping scores, the same at
+    every phase), averaged over the workers.  A phase's mean training
+    loss (tau 4 steps of batch 8, other documents each phase) moves by
+    more than that between phases (PERF.md, PR 27).  The held-out losses
+    on the first shards are printed beside them."""
+    tr, cfg = out["trainer"], out["cfg"]
+    means = [p["mean_loss"] for p in out["phases"]]
+    held = {}
+    for name, ds in (("first_shards", out["dataset"]),
+                     ("new_shards", tr.dataset)):
+        held[name] = [[mean_nll(row(kept[ph], w), cfg, h[:64])
+                       for w, h in enumerate(ds.holdouts) if len(h)]
+                      for ph in sorted(kept)]
+    res = {"phase_means": means, "holdout_by_phase": held,
+           "holdout_mean_by_phase": {k: [float(np.mean(r)) for r in v]
+                                     for k, v in held.items()}}
+    print(f"[alg1 losses] phase means {means}; held-out by phase, mean "
+          f"over workers {res['holdout_mean_by_phase']}", flush=True)
+    assert np.isfinite(means).all() and means[1] < means[0], res
+    new = res["holdout_mean_by_phase"]["new_shards"]
+    assert np.isfinite(new).all() and new[-1] < new[-2], res
+    return res
+
+
+def alg1_scoring(out, params) -> dict:
+    """``score_documents`` at the re-shard (through the kernels on the
+    card) against the same call through the plain attention on the same
+    weights.  The bar is phase 2's bf16 bar on each scored token, so on
+    a document's sum of them; the argmax may differ only where the plain
+    scores' top two are closer than that bar."""
+    cfg, tr = out["cfg"], out["trainer"]
+    paths = [row(params, tr.worker_of_path(p))
+             for p in range(tr.partition.num_paths)]
+    plain = score_documents(paths, cfg.replace(attn_impl="chunked"),
+                            out["router_docs"]).float()
+    got = out["scores"].float()
+    scored = out["router_docs"].shape[1] - cfg.route_prefix_len
+    bar = TOL[torch.bfloat16] * scored
+    top2 = torch.topk(plain, 2, dim=1).values
+    gap = top2[:, 0] - top2[:, 1]
+    differ = got.argmax(1) != plain.argmax(1)
+    res = {"max_abs_err": float((got - plain).abs().max()),
+           "mean_abs_err": float((got - plain).abs().mean()),
+           "score_scale": float(plain.abs().max()), "bar": bar,
+           "scored_tokens": scored, "argmax_flips": int(differ.sum()),
+           "wrong_flips": int((differ & (gap > bar)).sum()),
+           "min_top2_gap": float(gap.min())}
+    print(f"[alg1 scoring] kernels vs plain attention: {res}", flush=True)
+    assert res["max_abs_err"] <= bar and res["wrong_flips"] == 0, res
+    return res
+
+
+def alg1_early_stopping(out, kept) -> dict:
+    """``path_params(p, best=True)`` must equal, bit for bit, the
+    parameters its worker held after the phase of its lowest holdout
+    loss (the last phase at which the running minimum fell)."""
+    tr = out["trainer"]
+    hist = np.stack([p["best_holdout"] for p in out["phases"]])
+    best = [max(ph for ph in range(len(hist))
+                if ph == 0 or hist[ph, w] < hist[ph - 1, w])
+            for w in range(tr.num_workers)]
+    for p in range(tr.partition.num_paths):
+        w = tr.worker_of_path(p)
+        assert same_params([tr.path_params(p, best=True)],
+                           [row(kept[best[w]], w)]), (p, w, best)
+    res = {"best_phase": best, "best_holdout_by_phase": hist.tolist()}
+    print(f"[alg1 early stopping] {res}", flush=True)
+    return res
+
+
+def alg1_dumps(out) -> dict:
+    """One full dump a phase; the last, read back, equals the workers'
+    parameters bit for bit; all of them within ALG1_DUMP_CAP_GB."""
+    db, tr = out["db"], out["trainer"]
+    rows = db.rows(kind="full")
+    assert [r.phase for r in rows] == list(range(len(out["phases"]))), rows
+    t0 = time.perf_counter()
+    back = train_dipaco.restore_dump(db, tr.worker_params)
+    sync(DEV12)
+    res = {"rows": len(rows), "gb": db.nbytes() / 1e9,
+           "read_back_s": time.perf_counter() - t0,
+           "bit_equal": same_params([back], [tr.worker_params])}
+    print(f"[alg1 dumps] {res}", flush=True)
+    assert res["bit_equal"] and res["gb"] <= ALG1_DUMP_CAP_GB, res
+    return res
+
+
+def alg1_rerouted(out) -> dict:
+    """Table 3's protocol on the best paths with the discriminative
+    router of the re-shard: route once per sequence, every 16 and every
+    8 tokens."""
+    tr, cfg, val = out["trainer"], out["cfg"], out["val"]
+    paths = [tr.path_params(p, best=True)
+             for p in range(tr.partition.num_paths)]
+    res = {}
+    for every in REROUTE12:
+        t0 = time.perf_counter()
+        r = evaluate_rerouted(paths, cfg, out["router"], out["base"], val,
+                              every=every or val.shape[1])
+        sync(DEV12)
+        r["seconds"] = time.perf_counter() - t0
+        res[f"every_{every}" if every else "once"] = r
+        print(f"[alg1 reroute] {'once' if every is None else every}: "
+              f"nll {r['nll']:.4f} ppl {r['ppl']:.3f} switch rate "
+              f"{r['switch_rate']:.4f} ({r['seconds']:.1f} s)", flush=True)
+        assert np.isfinite(r["nll"]), r
+    return res
+
+
+def alg1(card: str) -> tuple:
+    """(a): the example's Algorithm 1 run with its re-shard, early
+    stopping and dumps, then the checks.  -> (results, the run's data
+    for (b), its trainer dropped)."""
+    root = tempfile.mkdtemp(prefix="dipaco-phase12-", dir=SHM12)
+    kept = {}
+
+    def keep(ph, tr):
+        kept[ph] = pytree.tree_map(torch.clone, tr.worker_params)
+
+    reset_counts()
+    reset_peak(DEV12)
+    t0 = time.perf_counter()
+    try:
+        out = train_dipaco.run(
+            preset_name="paper", phases=ALG1_PHASES, tau=ALG1_TAU,
+            batch_size=ALG1_BATCH, docs=ALG1_DOCS, ckpt=root, device=DEV12,
+            on_phase=keep)
+        sync(DEV12)
+        res = {"seconds": time.perf_counter() - t0,
+               "peak_memory_gib": peak_gib(DEV12), "launches": counts(),
+               "shard_sizes_before": out["sizes_before"],
+               "shard_sizes_after": out["sizes_after"],
+               "phase_losses": [p["mean_loss"] for p in out["phases"]],
+               "routed_eval_best": out["eval"]}
+        print(f"[alg1] {res} ({card})", flush=True)
+        tr, cfg = out["trainer"], out["cfg"]
+        assert out["sizes_after"] is not None \
+            and min(out["sizes_after"]) > 0, out["sizes_after"]
+        assert np.isfinite(out["eval"]["ppl"]), out["eval"]
+        res["losses"] = alg1_losses(out, kept)
+        res["scoring"] = alg1_scoring(out, kept[out["reshard_phase"]])
+        res["early_stopping"] = alg1_early_stopping(out, kept)
+        del kept
+        res["dumps"] = alg1_dumps(out)
+        res["flash_attention_expected"] = cfg.num_layers * alg1_forwards(out)
+        if DEV12 == "cuda":
+            launched = res["launches"]
+            check_launches(cfg, launched,
+                           tr.num_workers * ALG1_TAU * ALG1_PHASES,
+                           "phase 12 (a)")
+            assert launched["flash_attention"] == \
+                res["flash_attention_expected"], res
+            # kmeans_fit's 25 Lloyd iterations, its final assignment and
+            # the validation documents'
+            assert launched["router_assign"] == KMEANS_ITERS + 2, launched
+        res["rerouted"] = alg1_rerouted(out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for k in ("trainer", "db", "scores"):
+        out.pop(k)
+    free_memory()
+    return res, out
+
+
+class MixedGradients:
+    """Wraps the sync trainer's step (§4.5): captures the mixed gradient
+    AdamW takes for each worker, checks that workers sharing a module
+    got the same bits of it (``sharing_mismatch``), and records each
+    worker's clip scale (AdamW clips a worker's mixed gradient by its
+    own global norm) and the shared modules of the parameters after the
+    step."""
+
+    def __init__(self, tr):
+        self.tr, self.inner = tr, tr._step_fn
+        self.grads, self.params, self.clip_scales = [], [], []
+
+    def __call__(self, *args):
+        taken, real = [], launch_steps.adamw_update_
+
+        def capture(grads, state, params, **kw):
+            taken.append(grads)
+            return real(grads, state, params, **kw)
+
+        launch_steps.adamw_update_ = capture
+        try:
+            result = self.inner(*args)
+        finally:
+            launch_steps.adamw_update_ = real
+        tr = self.tr
+        stacked = pytree.tree_map(lambda *g: torch.stack(g), *taken)
+        self.grads.append(sharing_mismatch(stacked, tr.axes, tr.mix_layers,
+                                           tr.mix_shared))
+        self.params.append(sharing_mismatch(result[0], tr.axes,
+                                            tr.mix_layers, tr.mix_shared))
+        self.clip_scales.append([min(1.0, 1.0 / float(global_norm(g)))
+                                 for g in taken])
+        del stacked, taken
+        return result
+
+
+def variant(name: str, dcfg, ds, data, val_assign, *,
+            sync_trainer: bool = False) -> dict:
+    """One of the paper's variants from (a)'s base weights: 2 phases of
+    tau 4, each phase's mean loss finite and falling, the attention
+    kernels launched as the steps need, and the invariant of its mixing:
+    workers that share a module hold it bit for bit after every outer
+    step; for the sync trainer, their mixed gradients are the same bits
+    at every inner step (the parameters part where AdamW's clip scales
+    differ, in the reference too: tests/test_torch_examples.py)."""
+    cfg = data["cfg"]
+    reset_counts()
+    reset_peak(DEV12)
+    kw = dict(base_params=data["base"], batch_size=ALG1_BATCH, peak_lr=2e-3,
+              warmup=ALG1_TAU, total_steps=VARIANT_PHASES * ALG1_TAU)
+    tr = (SyncDiPaCoTrainer(cfg, dcfg, ds, device=DEV12, **kw)
+          if sync_trainer else
+          make_trainer(cfg, dcfg, ds, backend="vector", device=DEV12, **kw))
+    shared = []
+    if sync_trainer:
+        mixed = tr._step_fn = MixedGradients(tr)
+    phases = []
+    for _ in range(VARIANT_PHASES):
+        t0 = time.perf_counter()
+        m = tr.run_phase()
+        sync(DEV12)
+        phases.append({"mean_loss": m.mean_loss,
+                       "seconds": time.perf_counter() - t0})
+        if not sync_trainer:
+            shared.append(sharing_mismatch(tr.worker_params, tr.axes,
+                                           tr.mix_layers, tr.mix_shared))
+    launched = counts()
+    ev = tr.evaluate_routed(data["val"], val_assign)
+    res = {"shard_sizes": ds.sizes.tolist(), "phases": phases,
+           "peak_memory_gib": peak_gib(DEV12), "routed_eval": ev,
+           "alg1_routed_eval_best": data["eval"], "launches": launched,
+           "sharing": shared, "workers": tr.num_workers,
+           "paths": tr.partition.num_paths}
+    if sync_trainer:
+        shared = mixed.grads
+        res.update(sharing=shared, params_sharing=mixed.params,
+                   clip_scales=mixed.clip_scales)
+        print(f"[variant {name}] shared modules of the parameters after "
+              f"each step: {mixed.params}; clip scales {mixed.clip_scales}",
+              flush=True)
+    print(f"[variant {name}] losses {[p['mean_loss'] for p in phases]}, "
+          f"phase seconds {[p['seconds'] for p in phases]}, peak "
+          f"{res['peak_memory_gib']} GiB, routed ppl {ev['ppl']:.3f} "
+          f"((a), best: {data['eval']['ppl']:.3f}), shards "
+          f"{res['shard_sizes']}, shared modules "
+          f"{'(mixed gradients) ' if sync_trainer else ''}{shared}",
+          flush=True)
+    losses = [p["mean_loss"] for p in phases]
+    assert np.isfinite(losses).all() and losses[1] < losses[0], losses
+    assert np.isfinite(ev["ppl"]), ev
+    assert all(s["differ"] == 0 for s in shared), shared
+    if DEV12 == "cuda":
+        check_launches(cfg, launched,
+                       tr.num_workers * ALG1_TAU * VARIANT_PHASES, name)
+    del tr, shared
+    free_memory()
+    return res
+
+
+def variants12(data) -> dict:
+    """(b): the paper's variants on (a)'s documents and base weights,
+    each with its own trainer, freed before the next is built."""
+    cfg, base, docs, feats = (data[k] for k in ("cfg", "base", "docs",
+                                                "feats"))
+    val, va, cents = data["val"], data["val_assign"], data["centroids"]
+    tau = dict(inner_steps=ALG1_TAU)
+    out = {}
+    # Table 1: classic DiLoCo, every worker on the one module
+    out["diloco"] = variant("diloco", diloco_config(4, **tau),
+                            shard_documents(docs, np.arange(len(docs)) % 4,
+                                            4), data, np.zeros_like(va))
+    assert out["diloco"]["sharing"][0]["pairs"] > 0
+    # Tables 1, 2: flat MoE on (a)'s k-means shards (nothing shared)
+    out["flat_moe"] = variant("flat_moe", flat_moe_config(4, **tau),
+                              data["dataset"], data, va)
+    # Table 1: a path-specific second level
+    out["path_specific"] = variant(
+        "path_specific", DiPaCoConfig(levels=(2, 2), path_specific_levels=(1,),
+                                      **tau), data["dataset"], data, va)
+    # §4.5: per-step gradient mixing
+    out["sync"] = variant("sync", DiPaCoConfig(levels=(2, 2), **tau),
+                          data["dataset"], data, va, sync_trainer=True)
+    assert len(out["sync"]["sharing"]) == VARIANT_PHASES * ALG1_TAU
+    # Table 5: 2x2 on product k-means shards, 2 centroids a half, so
+    # router_assign runs at D d_model / 2 and K 2
+    vfeats = prefix_features(base, cfg, val)
+    reset_counts()
+    pair, passign = product_kmeans_fit(
+        feats, 2, generator=torch.Generator(device=DEV12).manual_seed(3))
+    pva = product_kmeans_assign(vfeats, pair).cpu().numpy()
+    launched = counts()
+    if DEV12 == "cuda":
+        assert launched["router_assign"] == 2 * (KMEANS_ITERS + 1) + 2, \
+            launched
+    out["product_kmeans"] = variant(
+        "product_kmeans", DiPaCoConfig(levels=(2, 2), **tau),
+        shard_documents(docs, passign.cpu().numpy(), 4), data, pva)
+    out["product_kmeans"]["router_assign_launches"] = \
+        launched["router_assign"]
+    # §2.4.4, Table 2: flat MoE on top-2 overlapping k-means shards
+    out["flat_moe_top2"] = variant(
+        "flat_moe_top2", flat_moe_config(4, **tau),
+        shard_documents(docs, topn_assign(feats, cents, 2).cpu().numpy(), 4),
+        data, va)
+    return out
+
+
+def examples12() -> dict:
+    """(c): the other four examples at their scripts' sizes, through
+    their functions; each must end cleanly, the two that serve must
+    launch flash decode, train_and_serve must swap and roll back, and
+    every architecture's loss must fall."""
+    runs = {"quickstart": quickstart.run, "serve_paths": serve_paths.run,
+            "train_and_serve": functools.partial(train_and_serve.run,
+                                                 tmp_dir=SHM12),
+            "multiarch_smoke": multiarch_smoke.run}
+    out = {}
+    for name, fn in runs.items():
+        reset_counts()
+        reset_peak(DEV12)
+        t0 = time.perf_counter()
+        r = fn(device=DEV12, **EXAMPLES12[name])
+        sync(DEV12)
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     "peak_memory_gib": peak_gib(DEV12),
+                     "launches": counts()}
+        if name == "quickstart":
+            out[name].update(losses=r["losses"], eval=r["eval"])
+            assert np.isfinite(r["losses"]).all(), r["losses"]
+            assert np.isfinite(r["eval"]["ppl"]), r["eval"]
+        elif name == "serve_paths":
+            out[name].update(stats=dataclasses.asdict(r["stats"]),
+                             switches=r["rerouted"].switches)
+            assert r["stats"].completed == len(r["finished"]), r["stats"]
+        elif name == "train_and_serve":
+            out[name].update({k: r[k] for k in (
+                "by_version", "swaps", "swaps_after_rollback", "latest",
+                "rolled_back_to", "versions_after_rollback", "published")})
+            assert r["swaps"] >= 1, r["swaps"]
+            assert r["rolled_back_to"] < r["latest"], r
+            assert r["versions_after_rollback"] == [r["rolled_back_to"]], r
+        else:
+            out[name].update(losses={a["arch"]: (a["first"], a["last"])
+                                     for a in r})
+            assert all(a["last"] < a["first"] for a in r), out[name]
+        if DEV12 == "cuda" and name in ("serve_paths", "train_and_serve"):
+            assert out[name]["launches"]["flash_decode"] > 0, out[name]
+        print(f"[example {name}] {out[name]}", flush=True)
+        del r
+        free_memory()
+    return out
+
+
+def phase12(card: str) -> dict:
+    """Phase 12: (a) Algorithm 1 through ``train_dipaco.run``, (b) the
+    paper's variants, (c) the other four examples."""
+    t_start = time.perf_counter()
+    res, data = alg1(card)
+    out = {"alg1": res}
+    t0 = time.perf_counter()
+    out["variants"] = variants12(data)
+    out["variants_seconds"] = time.perf_counter() - t0
+    del data
+    free_memory()
+    t0 = time.perf_counter()
+    out["examples"] = examples12()
+    out["examples_seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[examples phase] (a) {res['seconds']:.1f} s, (b) "
+          f"{out['variants_seconds']:.1f} s, (c) "
+          f"{out['examples_seconds']:.1f} s, {out['seconds']:.1f} s in all",
+          flush=True)
+    return out
+
+
+def phase12_launches(kernels: list, out: dict) -> None:
+    """Phase 12's launch counts into the kernels line: (a)'s and the
+    variants' training kernels, (a)'s forwards and assignments, the
+    product k-means' assignments, and the examples' serving, SSD and
+    expert kernels."""
+    variants = out["variants"].values()
+    examples = out["examples"].values()
+    for k in kernels:
+        name = k["name"]
+        if name not in out["alg1"]["launches"]:
+            continue
+        k["launches_phase12_alg1"] = out["alg1"]["launches"][name]
+        k["launches_phase12_variants"] = sum(v["launches"][name]
+                                             for v in variants)
+        k["launches_phase12_examples"] = sum(e["launches"][name]
+                                             for e in examples)
+        if name == "router_assign":
+            k["launches_phase12_product_kmeans"] = out["variants"][
+                "product_kmeans"]["router_assign_launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4383,6 +4938,13 @@ def main() -> int:
             attn_impl="pallas", dtype="bfloat16", route_prefix_len=32)
         _, train_ds, train_base = train(cfg)
         out = mesh(card, cfg, train_ds, train_base)
+        print(card)
+        print(json.dumps(out))
+        return 0
+
+    if "--examples" in sys.argv[1:]:
+        # phase 12 alone after the build (development)
+        out = phase12(card)
         print(card)
         print(json.dumps(out))
         return 0
@@ -4534,6 +5096,11 @@ def main() -> int:
     family_launches(family_kernels, fam)
     phase_s["families"] = time.perf_counter() - t0
     print(f"[phase] families: {phase_s['families']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    examples = phase12(card)
+    phase12_launches(kernels, examples)
+    phase_s["examples"] = time.perf_counter() - t0
+    print(f"[phase] examples: {phase_s['examples']:.1f} s", flush=True)
     for k in kernels:
         if k["name"] in ("flash_attention_lse", "flash_attention_dkv",
                          "flash_attention_dq"):
@@ -4573,7 +5140,8 @@ def main() -> int:
                       "train": trained, "train_grad_parity": grads,
                       "families": families, "continuous": cont,
                       "service": svc, "deploy": dep, "mesh": meshed,
-                      "families11": fam, "phase_seconds": phase_s}))
+                      "families11": fam, "examples": examples,
+                      "phase_seconds": phase_s}))
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

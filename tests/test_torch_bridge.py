@@ -118,6 +118,9 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    examples = ROOT / "src" / "repro_torch" / "examples"
+    assert {f"{n}.py" for n in EXAMPLES} <= {f.name for f in files
+                                              if f.parent == examples}
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -129,9 +132,15 @@ def _no_card():
         pytest.skip("a CUDA device is present: the default device works")
 
 
+# the five examples, each run as ``python -m repro_torch.examples.<name>``
+EXAMPLES = ("quickstart", "train_dipaco", "serve_paths", "train_and_serve",
+            "multiarch_smoke")
+
+
 @pytest.mark.parametrize("entry", [
     "init_model", "from_numpy_tree", "init_serve_cache", "serve_main",
-    "serve_continuous_main", "make_trainer", "train_main"])
+    "serve_continuous_main", "make_trainer", "train_main",
+    *(f"{n}_main" for n in EXAMPLES)])
 def test_default_device_without_card_raises(entry):
     _no_card()
     cfg = tcfgs.get_smoke_config("dipaco-150m")
@@ -154,6 +163,9 @@ def test_default_device_without_card_raises(entry):
         "train_main": lambda: __import__(
             "repro_torch.launch.train", fromlist=["main"]).main(["--smoke"]),
     }
+    for name in EXAMPLES:
+        calls[f"{name}_main"] = lambda name=name: __import__(
+            f"repro_torch.examples.{name}", fromlist=["main"]).main([])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
 
