@@ -11,12 +11,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    source, in parallel) and prints the build time and ptxas's report
    (each entry function's registers, shared memory, spills), and the
    attention backward's registers and spill bytes by instantiation: the
-   bf16 ones at head_dim 192 and 256 must not spill.  The machine code of the sources with a tensor-core path (``moe_gmm``,
+   bf16 ones at head_dim 192 and 256 must not spill, nor may the expert
+   GEMM's backward kernels (``gmm_dx_kernel`` at every width,
+   ``gmm_dw_kernel``), whose registers and spill bytes are printed.  The
+   machine code of the sources with a tensor-core path (``moe_gmm``,
    ``flash_attention``, ``flash_attention_bwd``, ``router_assign``,
    ``ssd_scan``, ``ssd_scan_bwd``) must hold wgmma (HGMMA) and TMA loads
-   (UTMALDG).  Prints flash decode's dynamic shared memory a block for
-   every head dim, cache dtype and head-group size, each within the
-   232,448 bytes a block may take.
+   (UTMALDG), and so must each function of the backward kernels.
+   Prints flash decode's dynamic shared memory a block for every head
+   dim, cache dtype and head-group size, each within the 232,448 bytes
+   a block may take.
 2. Kernels against their plain PyTorch versions on the card, in bf16 and
    f32, at the main paths' shapes and at others: flash attention and
    flash decode (serving), the forward that writes the LSE rows, the
@@ -25,8 +29,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    and its backward, and the expert GEMM (token MoE) and its dX and dW.
    Times each kernel, its plain version and one PyTorch call as a
    yardstick where one computes the same function.  Ragged shapes reach
-   each edge of the tensor-core tilings; two launches of each backward
-   kernel on the same inputs must give the same bits.
+   each edge of the tensor-core tilings (for dX and dW: C 1, 255-257,
+   320, 340, 360 and 1360, d and f off the 128- and 256-row tiles, one
+   expert); two launches of each backward kernel on the same inputs
+   must give the same bits, at every bf16 case.
 3. Serving at full width: ``dipaco-150m`` (12 blocks, d 896, vocab
    32000) in bf16 with ``attn_impl="pallas"``, 4 random paths and a
    discriminative router; ``PathServingEngine.generate`` serves 8 corpus
@@ -346,7 +352,8 @@ from repro_torch.core.dipaco import (SyncDiPaCoTrainer,  # noqa: E402
 from repro_torch.data.loader import phase_batches  # noqa: E402
 from repro_torch.examples import (multiarch_smoke, quickstart,  # noqa: E402
                                   serve_paths, train_and_serve, train_dipaco)
-from repro_torch.kernels.moe_gmm import (expert_gemm, expert_gemm_dw,  # noqa: E402
+from repro_torch.kernels.moe_gmm import (backward_plan,  # noqa: E402
+                                         expert_gemm, expert_gemm_dw,
                                          expert_gemm_dx)
 from repro_torch.kernels.router_assign import router_assign  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
@@ -472,6 +479,8 @@ def randn(gen, *shape, dtype):
 
 # the mangled names of the bf16 backward kernels at head_dim 192 and 256
 WIDE_BWD = re.compile(r"(dkv|dq)_wgmmaILi(192|256)E")
+# the expert GEMM's backward kernels: dX at each width, dW
+BWD_KERNEL = re.compile(r"gmm_d[xw]_kernel")
 
 
 def tensor_core_sass() -> None:
@@ -494,6 +503,25 @@ def tensor_core_sass() -> None:
         print(f"[sass {name}] {found}")
         assert all(any(found[op] for op in group) for group in groups), \
             (name, found)
+        if name == "moe_gmm":
+            backward_sass(sass)
+
+
+def backward_sass(sass: str) -> None:
+    """Each function of the expert GEMM's backward kernels (dX at every
+    width, dW) holds wgmma and TMA loads."""
+    funcs = re.split(r"\n\s*Function : ", sass)[1:]
+    seen = 0
+    for func in funcs:
+        fname = func.split("\n", 1)[0].strip()
+        if not BWD_KERNEL.search(fname):
+            continue
+        seen += 1
+        ops = {op: func.count(op) for op in ("HGMMA", "UTMALDG")}
+        assert all(ops.values()), (fname, ops)
+    print(f"[sass moe_gmm backward] {seen} functions, each with HGMMA and "
+          f"UTMALDG")
+    assert seen >= 2, seen
 
 
 def decode_smem() -> None:
@@ -1238,13 +1266,21 @@ def gemm_timings(xe, w, out, plain) -> dict:
 
 # (E, C, d, f): the token MoE's training products of qwen2-moe-a2.7b
 # (4 groups of capacity 85 folded into C 340; gate/up d 2048 -> f 1408,
-# down the other way), timed in bf16; then the tiling's edges: C 1360,
-# the ragged E2 C33 d50 f30 (the CUDA-core kernel), C 1, d and f not
-# multiples of 64 (MN-major B tiles of 64 + a tail)
+# down the other way), timed in bf16; then the tilings' edges: C 1360
+# (dX in groups, dW streaming), the ragged E2 C33 d50 f30 (the CUDA-core
+# kernel), C 1, 13, 90 and 300; C 255, 256 and 257 (one dX tile of 256
+# columns or two), 320, 340 and 360 (dX's 2 x 160, 2 x 176 and 2 x 184,
+# dW's panels of 320, 352 and 384 rows), with d and f off dX's 128-row
+# blocks, dW's 256-row panels and 128-column tiles and the 64-deep
+# k-tiles, and one expert
 GEMM_BWD_TIMED = [(60, 340, 2048, 1408), (60, 340, 1408, 2048)]
 GEMM_BWD_CASES = GEMM_BWD_TIMED + [(60, 1360, 2048, 1408), (2, 33, 50, 30),
                                    (3, 13, 200, 72), (2, 1, 136, 64),
-                                   (2, 300, 200, 136), (2, 90, 72, 200)]
+                                   (2, 300, 200, 136), (2, 90, 72, 200),
+                                   (1, 1, 72, 136), (1, 255, 200, 136),
+                                   (2, 256, 136, 72), (2, 257, 264, 200),
+                                   (1, 320, 392, 264), (2, 340, 72, 200),
+                                   (3, 340, 392, 136), (1, 360, 200, 392)]
 
 
 def check_expert_gemm_bwd(gen) -> list:
@@ -1267,10 +1303,13 @@ def check_expert_gemm_bwd(gen) -> list:
                    "dw": pdw.float().std().item()}
             row = {"shape": [e, c, d, f], "dtype": str(dtype),
                    "max_abs_err": errs, "plain_std": std, "tol": TOL[dtype]}
+            if dtype == torch.bfloat16:
+                row["bit_identical_relaunch"] = same_bits(xe, w, dy, dx, dw)
             rows.append(row)
             print(f"[expert_gemm_bwd] {row}")
             assert max(errs.values()) <= TOL[dtype], row
             assert min(std.values()) > 0.2, row
+            assert row.get("bit_identical_relaunch", True), row
             if dtype == torch.bfloat16 and (e, c, d, f) in GEMM_BWD_TIMED:
                 timed[(e, c, d, f)] = gemm_bwd_timings(xe, w, dy, errs)
     out = []
@@ -1290,17 +1329,26 @@ def check_expert_gemm_bwd(gen) -> list:
     return out
 
 
+def same_bits(xe, w, dy, dx, dw) -> bool:
+    """A second launch of dX and of dW on the same inputs gives the bits
+    of the first (dx, dw)."""
+    return bool(torch.equal(dx, expert_gemm_dx(dy, w, xe))
+                and torch.equal(dw, expert_gemm_dw(xe, dy, w)))
+
+
 def gemm_bwd_timings(xe, w, dy, errs) -> dict:
     """dX and dW in bf16: each kernel, the plain backward (which computes
-    both), the bound, and one torch.bmm on the same inputs; two launches
-    of each give the same bits."""
+    both), the bound, and one torch.bmm on the same inputs, with the
+    tiling `backward_plan` chose; two launches of each give the same
+    bits."""
     e, c, d = xe.shape
     f = w.shape[-1]
     dx, dw = expert_gemm_dx(dy, w, xe), expert_gemm_dw(xe, dy, w)
-    same = bool(torch.equal(dx, expert_gemm_dx(dy, w, xe))
-                and torch.equal(dw, expert_gemm_dw(xe, dy, w)))
+    same = same_bits(xe, w, dy, dx, dw)
     print(f"[expert_gemm_bwd] bit-identical relaunch: {same}")
     assert same
+    plans = dict(zip(("dx", "dw"), (dataclasses.asdict(p) for p in
+                                    backward_plan(e, c, d, f))))
     plain_ms = time_ms(lambda: ref.expert_gemm_bwd_ref(xe, w, dy), 10)
     wt, xt = w.transpose(1, 2), xe.transpose(1, 2)
     out = {}
@@ -1313,7 +1361,7 @@ def gemm_bwd_timings(xe, w, dy, errs) -> dict:
         out[key] = {"max_abs_err": errs[key], "ms": time_ms(fn),
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": time_ms(lib),
-                    "bit_identical_relaunch": same}
+                    "bit_identical_relaunch": same, "plan": plans[key]}
     return out
 
 
@@ -1401,9 +1449,14 @@ def check_gemm_families(gen) -> list:
                         case = {"shape": [e, c, dd, ff], "dtype": str(dtype),
                                 "backward_max_abs_err": errs,
                                 "tol": TOL[dtype]}
+                        if dtype == torch.bfloat16:
+                            case["bit_identical_relaunch"] = same_bits(
+                                xb, wb, dy, dx, dw)
                         print(f"[expert_gemm_bwd {family}] {case}")
                         cases.append(case)
                         assert max(errs.values()) <= TOL[dtype], case
+                        assert case.get("bit_identical_relaunch", True), \
+                            case
                         if dtype == torch.bfloat16 and kind == "train":
                             timed[("bwd", dd)] = gemm_bwd_timings(
                                 xb, wb, dy, errs)
@@ -4906,7 +4959,7 @@ def main() -> int:
     # spill bytes of the bf16 backward at head_dim 192 / 256 (the two
     # column chunks of dK/dV at each, and dQ), which must be 0.  A library
     # built before this run has no report: remove build/kernels to read it
-    wide_bwd = {}
+    wide_bwd, gemm_bwd = {}, {}
     for name, log in reports.items():
         entry = ""
         for line in log.splitlines():
@@ -4915,10 +4968,18 @@ def main() -> int:
                 print(f"[ptxas {name}] {line.strip()}")
             if "entry function" in line:
                 entry = line
-            elif "spill stores" in line and WIDE_BWD.search(entry):
+            elif "spill stores" in line:
                 words = line.split()
-                wide_bwd[entry] = int(words[4]) + int(words[8])
+                spilled = int(words[4]) + int(words[8])
+                if WIDE_BWD.search(entry):
+                    wide_bwd[entry] = spilled
+                elif BWD_KERNEL.search(entry):
+                    gemm_bwd[entry] = spilled
     assert len(wide_bwd) == 6 and not any(wide_bwd.values()), wide_bwd
+    # the expert GEMM's dX at its 23 widths (8-184) and dW
+    print(f"[ptxas moe_gmm backward] {len(gemm_bwd)} entries, spill bytes "
+          f"{sorted(set(gemm_bwd.values()))}")
+    assert len(gemm_bwd) == 24 and not any(gemm_bwd.values()), gemm_bwd
     tensor_core_sass()
     decode_smem()
 

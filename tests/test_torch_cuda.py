@@ -619,9 +619,20 @@ def test_expert_gemm_kernel_matches_plain(cuda, dtype, e, c, d, f):
                                rtol=0)
 
 
+# the backward tilings' edges (``moe_gmm.backward_plan``): C 1, 255-257
+# (one dX block of two 128-column tiles or of two 136), 320, 340 and 360
+# (2 x 160, 2 x 176, 2 x 184; dW panels of 320, 352 and 384 rows), d and f
+# off dX's 128-row blocks, dW's 256-row panels and 128-column tiles and the
+# 64-deep k-tiles, one expert
+GEMM_BWD_EDGES = [(1, 1, 72, 136), (1, 255, 200, 136), (2, 256, 136, 72),
+                  (2, 257, 264, 200), (1, 320, 392, 264), (2, 340, 72, 200),
+                  (3, 340, 392, 136), (1, 360, 200, 392)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("e,c,d,f", GEMM_CASES + [(2, 1360, 136, 72)])
+@pytest.mark.parametrize("e,c,d,f", GEMM_CASES + [(2, 1360, 136, 72)]
+                         + GEMM_BWD_EDGES)
 def test_expert_gemm_bwd_kernels_match_plain(cuda, dtype, e, c, d, f):
     """dX = dY W^T and dW = X^T dY against the f32 einsums on the same
     inputs, scaled so that both are about N(0, 1/4): below 4, where one
@@ -643,6 +654,46 @@ def test_expert_gemm_bwd_kernels_match_plain(cuda, dtype, e, c, d, f):
                                rtol=0)
     torch.testing.assert_close(dw.float(), pdw.float(), atol=TOL[dtype],
                                rtol=0)
+
+
+@pytest.mark.cuda
+def test_expert_gemm_bwd_refuses_a_plan_it_cannot_run(cuda):
+    """The C entry points check `backward_plan`'s numbers: a dX tile wider
+    than 184, groups that leave C uncovered, a dW panel short of C or a
+    grid wider than its units return cudaErrorInvalidValue (1) and
+    launch nothing; the plan itself runs."""
+    import ctypes
+    from repro_torch.kernels import moe_gmm as mg
+    e, c, d, f = 2, 340, 136, 72
+    xe, w, dy = (t.to(cuda, torch.bfloat16) for t in _randn(
+        18, (e, c, d), (e, d, f), (e, c, f)))
+    out = torch.zeros(e, c, d, device=cuda, dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream(xe.device).cuda_stream
+    px, pw = mg.backward_plan(e, c, d, f)
+
+    def dx_rc(n, groups, stages):
+        return mg._lib("expert_gemm_dx")(
+            dy.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f, 1, n,
+            groups, stages, stream)
+
+    def dw_rc(kp, grid, stages):
+        dw = torch.zeros(e, d, f, device=cuda, dtype=torch.bfloat16)
+        return mg._lib("expert_gemm_dw")(
+            xe.data_ptr(), dy.data_ptr(), dw.data_ptr(), e, c, d, f, 1, kp,
+            grid, stages, stream)
+
+    assert dx_rc(px.n, px.groups, px.stages) == 0
+    assert dw_rc(pw.kp, pw.grid, pw.stages) == 0
+    torch.cuda.synchronize()
+    out.zero_()
+    for n, groups, stages in ((192, 1, 3), (88, 1, 3), (176, 1, 9),
+                              (172, 1, 3)):
+        assert dx_rc(n, groups, stages) == 1, (n, groups, stages)
+    torch.cuda.synchronize()
+    assert not out.any()
+    for kp, grid, stages in ((320, 2, 3), (352, 3, 3), (352, 2, 9),
+                             (416, 2, 2)):
+        assert dw_rc(kp, grid, stages) == 1, (kp, grid, stages)
 
 
 @pytest.mark.cuda

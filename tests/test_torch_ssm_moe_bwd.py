@@ -103,7 +103,11 @@ def test_ssd_scan_bwd_ref_matches_jax_grad_of_ssd_chunked(b, s, h, p, g, n,
 
 
 @pytest.mark.parametrize("e,c,d,f", [(4, 8, 32, 48), (3, 21, 64, 40),
-                                     (2, 33, 50, 30)])
+                                     (2, 33, 50, 30),
+                                     # the backward tilings' edges at
+                                     # narrow d and f
+                                     (2, 255, 24, 40), (2, 257, 40, 24),
+                                     (1, 340, 32, 16)])
 def test_expert_gemm_bwd_ref_matches_jax_grad_of_the_einsum(e, c, d, f):
     rng = np.random.default_rng(2)
     xe, w = (rng.standard_normal(s).astype(np.float32)
