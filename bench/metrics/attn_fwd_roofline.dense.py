@@ -1,0 +1,5 @@
+"""``attn_fwd_roofline.train`` read in the dense training cell, whose rate is
+``train_tokens_per_s.dense``."""
+from bench.harness import reader
+
+read = reader("attn_fwd_roofline.train")

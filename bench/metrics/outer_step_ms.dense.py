@@ -1,0 +1,5 @@
+"""``outer_step_ms.train`` read in the dense training cell, whose rate is
+``train_tokens_per_s.dense``."""
+from bench.harness import reader
+
+read = reader("outer_step_ms.train")

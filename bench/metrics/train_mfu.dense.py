@@ -1,0 +1,5 @@
+"""``train_mfu`` read in the dense training cell, whose rate is
+``train_tokens_per_s.dense``."""
+from bench.harness import reader
+
+read = reader("train_mfu")
